@@ -15,13 +15,26 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     H-2/W-2 base cell). Also times the kernel, the plain version and one
     `index_put_(accumulate=True)` call computing the same gradient.
  3. A small render on the card against the same render on the CPU, values
-    and (ws, pose) gradients.
- 4. The main path, with every kernel's launch count set to 0 first:
+    and (ws, pose) gradients; a small 'vgg' loss (LPIPS on crop-augmented
+    copies, one transform for both) on the card against the CPU, value
+    and gradient w.r.t. the predicted image.
+ 4. The splat probes (P1, P2; csrc/splat_probes.cu): every P1 stage and P2
+    variant against its plain version at a small shape, then each case of
+    python -m nerf_from_image_tpu_torch.profile_splat at its full shape:
+    checked against the plain version, then driven as its own path (its
+    wrapper's launch count set to 0 just before, read just after) and
+    timed beside its plain version, its bound, its dense formulation's
+    operation time (P1) and, where one exists, one PyTorch call computing
+    the same work (profile_splat.library_call).
+ 5. The main path, with the splat kernel's launch count set to 0 first:
     the full-width render forward+backward of the bench model and step
     (B=4, 128^2 rays, 64 coarse + 64 fine samples, pairwise merge, splat
     backward, grads w.r.t. ws and pose) in f32 and in bf16 plane tables,
-    then a 5-step 'mse' inversion at the same width.
- 5. The kernel summary line, the card line, and last the ok line.
+    a 5-step 'mse' inversion at the same width, and a 5-step 'vgg'
+    inversion (15 crop augmentations: LPIPS on 64 + 64 images of 128^2
+    per step, random VGG16 features from a seed) with PSNR/SSIM/IoU of
+    the render against the target before and after.
+ 6. The kernel summary line, the card line, and last the ok line.
 
 Weights are random, drawn from fixed seeds. Needs one card; exits non-zero
 without one, or when the package is not next to this file.
@@ -44,6 +57,15 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 KERNEL_REL_TOL = 1e-5  # f32 atomics reorder the sums from run to run
 RENDER_REL_TOL = 1e-4  # card vs CPU: other exp/log and summation orders
+# P1: identically rounded bf16 operands, only the f32 sum order differs
+# (tensor cores, reductions). P2: f32 block sums and atomics.
+WINDOW_PROBE_TOL = 1e-4
+IO_PROBE_TOL = 1e-5
+VGG_LOSS_TOL = 1e-4  # card vs CPU: cuDNN and CPU convolution sum orders
+# Lines of the TPU kernels the probe kernels replace.
+P1_KERNEL = "scripts/profile_splat.py:49"
+P2_KERNELS = {"empty": 51, "read_g": 71, "read_ixy_P1": 95, "read_ixy_2P": 119,
+              "transpose_2P": 145}
 
 
 def log(*args):
@@ -56,23 +78,6 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip()
-
-
-def cuda_ms(fn, iters, warmup=1):
-    """Mean device time of fn() in ms, CUDA events around `iters` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def rel_err(a, b):
@@ -91,6 +96,7 @@ def phase_kernel(dev):
         splat_corners,
     )
     from nerf_from_image_tpu_torch.ops.sampling import compute_query_points_from_rays
+    from nerf_from_image_tpu_torch.profile_splat import cuda_ms
     from nerf_from_image_tpu_torch.profile_step import bench_poses
 
     cfg = RenderConfig(resolution=RES, depth_samples_per_ray=SAMPLES, scene_range=1.4)
@@ -174,6 +180,7 @@ def phase_kernel(dev):
         "library_ms": library_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "dense_product_ms": None,
     }
 
 
@@ -229,6 +236,116 @@ def phase_small_render(dev):
             raise AssertionError(f"small render {name} differs: {rel}")
 
 
+def phase_small_vgg(dev):
+    """A small 'vgg' reconstruction loss on the card against the CPU: the
+    same LPIPS weights, images and augmentation transform."""
+    import torch
+
+    from nerf_from_image_tpu_torch.engine.augment import sample_transform
+    from nerf_from_image_tpu_torch.engine.inversion import (
+        InversionConfig,
+        reconstruction_loss,
+    )
+    from nerf_from_image_tpu_torch.models.lpips import LPIPS
+
+    cfg = InversionConfig(loss="vgg", num_augmentations=3)
+    rng = np.random.default_rng(6)
+    pred = rng.uniform(-1.0, 1.0, (2, 32, 32, 3)).astype(np.float32)
+    target = rng.uniform(-1.0, 1.0, (2, 32, 32, 3)).astype(np.float32)
+    tform = sample_transform(torch.Generator().manual_seed(7), 6, 1.0)
+    lpips = LPIPS(torch.Generator().manual_seed(8), device="cpu")
+    results = {}
+    for device in ("cpu", dev):
+        x = torch.tensor(pred, device=device, requires_grad=True)
+        loss = reconstruction_loss(
+            cfg, lpips.to(device), x, torch.tensor(target, device=device),
+            tform=type(tform)(*(t.to(device) for t in tform)))
+        (grad,) = torch.autograd.grad(loss, x)
+        results[str(device)] = (loss.detach().cpu(), grad.cpu())
+    for name, a, b in zip(("loss", "d pred"), results[str(dev)], results["cpu"]):
+        _, rel = rel_err(a, b)
+        log(f"small vgg loss card vs CPU: {name} max rel err {rel:.3e}")
+        if not (torch.isfinite(a).all() and rel < VGG_LOSS_TOL):
+            raise AssertionError(f"small vgg loss {name} differs: {rel}")
+
+
+def phase_probes(dev):
+    """P1 and P2: small-shape checks, then every profile_splat case at full
+    shape (check, counted timed run, plain, bound, library call)."""
+    import torch
+
+    from nerf_from_image_tpu_torch import profile_splat as ps
+    from nerf_from_image_tpu_torch.kernels import splat_probes as sp
+
+    small = ps.ProbeInputs(dev, b=1, h=32, w=32, n=256)
+    for case in ([ps.Case("window", s, 64, 16, 8) for s in sp.STAGES]
+                 + [ps.Case("io", v, 64) for v in sp.IO_VARIANTS]):
+        args = small.args(case)
+        _, rel = rel_err(ps.kernel_fn(case)(*args), ps.plain_fn(case)(*args))
+        torch.cuda.synchronize()
+        tol = WINDOW_PROBE_TOL if case.probe == "window" else IO_PROBE_TOL
+        if not rel < tol:
+            raise AssertionError(f"{case.name} at the small shape: rel err {rel}")
+    log("splat probes at B=1, H=W=32, P=64, WY=16, WX=8: every P1 stage and "
+        "P2 variant agrees with its plain version")
+
+    inputs = ps.ProbeInputs(dev)
+    entries = []
+    for case in ps.CASES:
+        args = inputs.args(case)
+        kernel, plain = ps.kernel_fn(case), ps.plain_fn(case)
+        ref = plain(*args)
+        abs_err, rel = rel_err(kernel(*args), ref)
+        torch.cuda.synchronize()
+        tol = WINDOW_PROBE_TOL if case.probe == "window" else IO_PROBE_TOL
+        if not (torch.isfinite(ref).all() and rel < tol):
+            raise AssertionError(f"{case.name} disagrees with its plain version: {rel}")
+        library = ps.library_call(case, inputs)
+        # Where the library call gives the output itself, it must agree.
+        same = {"z_only": lambda: ref[:, 0, :case.WX * PLANE_C],
+                "read_g": lambda: ref[:, 0, :PLANE_C],
+                "read_ixy_2P": lambda: ref[:, 0, 0]}.get(case.variant)
+        if same is not None and not rel_err(library(), same())[1] < WINDOW_PROBE_TOL:
+            raise AssertionError(f"{case.name}: the library call computes another function")
+        del ref
+        kernel.launches = 0  # this case's path starts here
+        ms = ps.time_case(case, inputs)
+        launches = kernel.launches
+        if launches == 0:
+            raise AssertionError(f"{case.name}: its kernel was not launched")
+        plain_ms = ps.cuda_ms(lambda: plain(*args), iters=2, warmup=0)
+        library_ms = None if library is None else ps.cuda_ms(library, iters=5)
+        del library
+        b = ps.bound(case)
+        dense = b["dense_product_ms"]
+        log(f"{case.name}: kernel {ms:.4f} ms ({launches} launches), plain "
+            f"{plain_ms:.3f} ms, library {'-' if library_ms is None else f'{library_ms:.4f} ms'}"
+            f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes'] / 1e9:.4f} GB, "
+            f"{b['ops'] / 1e9:.3f} GOP f32), {100 * b['bound_ms'] / ms:.2f}% of bound"
+            f"{'' if dense is None else f'; dense formulation {dense:.4f} ms'}"
+            f"; max rel err {rel:.2e}")
+        entries.append({
+            "name": case.name,
+            "route": "cuda",
+            "source": "nerf_from_image_tpu_torch/csrc/splat_probes.cu",
+            "replaces": (P1_KERNEL if case.probe == "window"
+                         else f"scripts/profile_splat_io.py:{P2_KERNELS[case.variant]}"),
+            "launches": launches,
+            "max_abs_err": abs_err,
+            "max_rel_err": rel,
+            "ms": ms,
+            "kernel_ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"],
+            "dense_product_ms": dense,
+            "library_ms": library_ms,
+        })
+    del inputs
+    torch.cuda.empty_cache()
+    return entries
+
+
 def phase_render(dev, model, plane_dtype, splat3_backward, steps=3):
     """Full-width render forward+backward at the bench step."""
     import torch
@@ -282,11 +399,11 @@ def phase_inversion(dev, model, splat3_backward, steps=5):
         scene_range=1.4, query_chunk=None, plane_splat=True,
     )
     invert, z0, pose, target = inversion_case(model, cfg, dev, steps)
-    invert(z0, pose, target, n_steps=1)
+    invert(z0, pose, target.rgb, n_steps=1)
     before = splat3_backward.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    z, p_final, losses = invert(z0, pose, target)
+    z, p_final, losses = invert(z0, pose, target.rgb)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = splat3_backward.launches - before
@@ -300,6 +417,69 @@ def phase_inversion(dev, model, splat3_backward, steps=5):
         raise AssertionError(f"inversion loss did not fall: {losses}")
     if not (torch.isfinite(z).all() and torch.isfinite(p_final.q).all()):
         raise AssertionError("inversion returned non-finite parameters")
+
+
+def image_metrics(model, cfg, z, params, target, dev):
+    """PSNR, SSIM and IoU of the render at (z, pose params) against the
+    target render (images mapped from [-1, 1] to [0, 1])."""
+    import torch
+
+    from nerf_from_image_tpu_torch.engine.inversion import InversionConfig, build_camera
+    from nerf_from_image_tpu_torch.engine.render import render
+    from nerf_from_image_tpu_torch.metrics.image import iou, psnr, ssim
+
+    with torch.no_grad():
+        cam, focal = build_camera(params, False)
+        out, _ = render(cfg, model, cam, focal, z * InversionConfig.lr_gain_z, device=dev)
+        a, b = (out.rgb + 1.0) / 2.0, (target.rgb + 1.0) / 2.0
+        return (float(psnr(a, b)), float(ssim(a, b)),
+                float(iou(out.mask.reshape(a.shape[:3]), target.mask.reshape(b.shape[:3]))))
+
+
+def phase_vgg_inversion(dev, model, splat3_backward, steps=5):
+    """A 5-step 'vgg' inversion (the default loss, 15 augmentations) at the
+    bench width, after a 1-step warm-up."""
+    import torch
+
+    from nerf_from_image_tpu_torch.engine.render import RenderConfig
+    from nerf_from_image_tpu_torch.models.lpips import LPIPS
+    from nerf_from_image_tpu_torch.profile_step import inversion_case
+
+    cfg = RenderConfig(
+        resolution=RES, depth_samples_per_ray=SAMPLES, fine_sampling=True,
+        scene_range=1.4, query_chunk=None, plane_splat=True,
+    )
+    lpips = LPIPS(torch.Generator().manual_seed(4), device=dev)
+    invert, z0, pose, target = inversion_case(model, cfg, dev, steps, loss="vgg",
+                                              lpips=lpips)
+    before_metrics = image_metrics(model, cfg, z0, pose, target, dev)
+    invert(z0, pose, target.rgb, n_steps=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = splat3_backward.launches
+    t0 = time.perf_counter()
+    z, p_final, losses = invert(z0, pose, target.rgb)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = splat3_backward.launches - before
+    losses = losses.cpu().tolist()
+    after_metrics = image_metrics(model, cfg, z, p_final, target, dev)
+    log(f"inversion ({steps} steps, vgg, 15 augmentations, B={BATCH}): losses "
+        f"{', '.join(f'{v:.6f}' for v in losses)}; {secs / steps * 1e3:.1f} ms/step; "
+        f"peak memory {peak / 2**30:.2f} GiB; splat launches {launches}; "
+        f"PSNR/SSIM/IoU before {before_metrics[0]:.3f} dB/{before_metrics[1]:.4f}/"
+        f"{before_metrics[2]:.4f}, after {after_metrics[0]:.3f} dB/{after_metrics[1]:.4f}/"
+        f"{after_metrics[2]:.4f}")
+    if launches != 2 * steps:
+        raise AssertionError(f"vgg inversion launched the kernel {launches} times")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"vgg inversion losses are not finite: {losses}")
+    if not (torch.isfinite(z).all() and all(torch.isfinite(t).all() for t in p_final
+                                            if t is not None)):
+        raise AssertionError("vgg inversion returned non-finite parameters")
+    if not all(np.isfinite(before_metrics + after_metrics)):
+        raise AssertionError("non-finite image metrics")
 
 
 def main() -> int:
@@ -330,6 +510,8 @@ def main() -> int:
 
     summary = phase_kernel(dev)
     phase_small_render(dev)
+    phase_small_vgg(dev)
+    probes = phase_probes(dev)
 
     model = Generator(latent_dim=512, scene_range=1.4, attention_values=10,
                       use_sdf=True, device=dev,
@@ -339,9 +521,10 @@ def main() -> int:
     phase_render(dev, model, None, splat3_backward)
     phase_render(dev, model, "bfloat16", splat3_backward)
     phase_inversion(dev, model, splat3_backward)
+    phase_vgg_inversion(dev, model, splat3_backward)
     summary["launches"] = splat3_backward.launches
 
-    print(json.dumps({"kernels": [summary]}))
+    print(json.dumps({"kernels": [summary] + probes}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

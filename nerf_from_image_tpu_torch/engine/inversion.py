@@ -7,8 +7,10 @@ square root, the same bias correction) and projects the pose back onto
 its constraints (z0 in [-4, 4], s >= 0, unit q). The latent is optimized
 as z = w / lr_gain_z, so its effective learning rate is lr * gain.
 
-Only the pixel losses ('mse', 'l1') are ported; the perceptual losses
-('vgg', 'vgg_nocrop', 'mixed') need LPIPS and crop augmentation.
+The perceptual losses ('vgg', the default, 'vgg_nocrop' and 'mixed') take
+an LPIPS module; 'vgg' and 'mixed' compare `num_augmentations` crop-
+augmented copies of the (render, target) pair besides the pair itself.
+Each step draws its transforms from the call's generator.
 """
 
 from __future__ import annotations
@@ -18,11 +20,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from nerf_from_image_tpu_torch.engine import augment as augment_mod
 from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
 from nerf_from_image_tpu_torch.pose.pose import matrix_to_pose, pose_to_matrix
 from nerf_from_image_tpu_torch.utils.device import check_on_device, resolve_device
 
-_PIXEL_LOSSES = ("mse", "l1")
+LOSSES = ("vgg", "vgg_nocrop", "l1", "mse", "mixed")
+_PERCEPTUAL_LOSSES = ("vgg", "vgg_nocrop", "mixed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,14 +36,16 @@ class InversionConfig:
     b1: float = 0.9
     b2: float = 0.95
     lr_gain_z: float = 5.0
-    # 'mse' | 'l1'; the perceptual 'vgg' (the reference's default),
-    # 'vgg_nocrop' and 'mixed' are not ported yet and raise.
-    loss: str = "vgg"
+    loss: str = "vgg"  # one of LOSSES
+    num_augmentations: int = 15
     optimize_pose: bool = True
     # Hold a known focal fixed while R/s/t are optimized: z0's gradient is
     # zeroed, so Adam's moments for it stay zero and it never moves.
     optimize_focal: bool = True
     camera_flipped: bool = False
+    # Padding of the crop-augmented loss views: white on white-background
+    # datasets.
+    white_background: bool = False
 
 
 class PoseParams(NamedTuple):
@@ -77,43 +83,68 @@ def _abs(x):
     return torch.where(x >= 0, x, -x)
 
 
-def _check_loss(config: InversionConfig) -> None:
-    if config.loss not in _PIXEL_LOSSES:
-        raise NotImplementedError(
-            f"inversion loss {config.loss!r} needs LPIPS (models/lpips.py), "
-            "crop augmentation (engine/augment.py) and the zero-padded grid "
-            "sample (ops/grid_sample.py), the next slice of the port; use "
-            f"one of {_PIXEL_LOSSES}"
-        )
+def _check_loss(config: InversionConfig, lpips) -> None:
+    if config.loss not in LOSSES:
+        raise ValueError(f"inversion loss {config.loss!r} is not one of {LOSSES}")
+    if config.loss in _PERCEPTUAL_LOSSES and lpips is None:
+        raise ValueError(f"inversion loss {config.loss!r} needs an LPIPS module")
 
 
-def reconstruction_loss(config: InversionConfig, rgb_predicted: torch.Tensor,
-                        target: torch.Tensor) -> torch.Tensor:
-    """Pixel loss summed over the batch (the mean times B).
+def reconstruction_loss(config: InversionConfig, lpips, rgb_predicted: torch.Tensor,
+                        target: torch.Tensor, target_features=None,
+                        generator: Optional[torch.Generator] = None,
+                        tform: Optional[augment_mod.AugmentTransform] = None
+                        ) -> torch.Tensor:
+    """Crop-augmented perceptual and/or pixel loss, summed over the batch
+    (the mean times B).
 
-    rgb_predicted/target: [B, H, W, 3] in [-1, 1].
+    rgb_predicted/target: [B, H, W, 3] in [-1, 1]. target_features: the
+    target's cached LPIPS features, used when no augmentation runs. The
+    augmentation transform for the B * num_augmentations copies is drawn
+    from `generator` unless `tform` is given.
     """
-    _check_loss(config)
+    _check_loss(config, lpips)
     B = rgb_predicted.shape[0]
-    diff = rgb_predicted - target
+    loss = 0.0
+    if config.loss in _PERCEPTUAL_LOSSES:
+        pred_aug = rgb_predicted
+        tgt_aug = target if target_features is None else target_features
+        if config.loss != "vgg_nocrop" and config.num_augmentations > 0:
+            pair = torch.cat((rgb_predicted, target), dim=-1)
+            pair = torch.repeat_interleave(pair, config.num_augmentations, dim=0)
+            pair_aug, _, _, _ = augment_mod.augment(
+                generator, pair, None, None, 1.0,
+                white_background=config.white_background, tform=tform,
+            )
+            pred_aug = torch.cat((rgb_predicted, pair_aug[..., :3]), dim=0)
+            tgt_aug = torch.cat((target, pair_aug[..., 3:]), dim=0)
+        loss = loss + torch.mean(lpips(pred_aug, tgt_aug)) * B
+    if config.loss in ("l1", "mixed"):
+        loss = loss + torch.mean(_abs(rgb_predicted - target)) * B
     if config.loss == "mse":
-        return torch.mean(torch.square(diff)) * B
-    return torch.mean(_abs(diff)) * B
+        loss = torch.mean(torch.square(rgb_predicted - target)) * B
+    if config.loss == "mixed":
+        loss = loss / 2.0
+    return loss
 
 
 def make_invert_fn(config: InversionConfig, render_config: RenderConfig, model,
-                   device="cuda"):
+                   lpips=None, device="cuda"):
     """Builds the inversion routine
 
         invert(z, pose_params, target_img, generator=None, center=None,
                bbox=None, n_steps=None) -> (z, pose_params, losses [n])
 
-    `z` is the pre-gain latent (w_init / lr_gain_z), [B, 1, w_dim];
-    `generator=None` renders deterministically at every step. Tensors must
-    lie on `device` ('cuda' by default, which needs a card).
+    `z` is the pre-gain latent (w_init / lr_gain_z), [B, 1, w_dim].
+    `lpips` (models/lpips.py) is needed by the perceptual losses; the
+    target's features are computed once per call. `generator` drives the
+    render's sampling and the augmentation draws; with `generator=None`
+    the render is deterministic and the draws come from a generator seeded
+    0 on the device, so the call is repeatable. Tensors must lie on
+    `device` ('cuda' by default, which needs a card).
     """
     dev = resolve_device(device)
-    _check_loss(config)
+    _check_loss(config, lpips)
 
     def render_current(z, pose_params, generator, center, bbox):
         cam, focal = build_camera(pose_params, config.camera_flipped)
@@ -129,6 +160,13 @@ def make_invert_fn(config: InversionConfig, render_config: RenderConfig, model,
         check_on_device(dev, z=z, target_img=target_img, q=pose_params.q)
         n = config.steps if n_steps is None else n_steps
         target = target_img[..., :3]
+        target_features = None
+        if config.loss in _PERCEPTUAL_LOSSES:
+            with torch.no_grad():
+                target_features = lpips.features(target)
+        aug_generator = generator
+        if aug_generator is None:
+            aug_generator = torch.Generator(device=dev).manual_seed(0)
         z = z.detach().clone().requires_grad_(True)
         pose = PoseParams(*(
             None if t is None else t.detach().clone().requires_grad_(
@@ -144,7 +182,8 @@ def make_invert_fn(config: InversionConfig, render_config: RenderConfig, model,
         losses = []
         for _ in range(n):
             out = render_current(z, pose, generator, center, bbox)
-            loss = reconstruction_loss(config, out.rgb[..., :3], target)
+            loss = reconstruction_loss(config, lpips, out.rgb[..., :3], target,
+                                       target_features, aug_generator)
             # Gradients of the optimized leaves only: the generator's
             # parameters take none.
             for leaf, grad in zip(leaves, torch.autograd.grad(loss, leaves)):

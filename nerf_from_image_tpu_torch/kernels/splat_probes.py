@@ -1,0 +1,260 @@
+"""The splat probes P1 and P2 with their hand-written kernels.
+
+Counterparts of the TPU probe kernels in scripts/profile_splat.py (P1: the
+windowed tent-matrix splat, seven ablation stages) and
+scripts/profile_splat_io.py (P2: launch overhead, g streaming and
+coordinate streaming). Each wrapper launches its CUDA kernel
+(csrc/splat_probes.cu) on a CUDA tensor and counts the launch in
+`.launches`; on a CPU tensor it runs the plain PyTorch version beside it
+(`*_reference`). A CUDA launch that fails raises.
+
+Point blocks are laid out [B, nblocks, P, ...]: block (b, k) is the TPU
+grid step (b, k), and its points' outputs land in out[b] of the
+[B, H, W * C] f32 output. C is the model's 32 plane channels.
+
+One difference from the TPU scripts, on purpose: where a script sums a
+bf16 array (`jnp.sum` of Z in P1's z_only stage, of g in P2's read_g) it
+gets a bf16 result, the f32 sum rounded once. Here the sums stay f32: a
+bf16 rounding of sums taken in two orders (card and plain version) flips
+by one bf16 ulp and would hide the kernel's own error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from nerf_from_image_tpu_torch.kernels import build
+
+C = 32
+STAGES = ("full", "static_store", "no_tile", "z_only", "oy_only", "bf16build",
+          "dottile")
+IO_VARIANTS = ("empty", "read_g", "read_ixy_P1", "read_ixy_2P", "transpose_2P")
+# `empty` fills this corner of each batch element's output.
+EMPTY_ROWS, EMPTY_COLS = 64, 2048
+_P_MULTIPLE = 64  # points per kernel chunk
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("splat_probes")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.splat_window_probe.argtypes = [p, p, p, p, p, p] + [i] * 8 + [p]
+    lib.splat_window_probe.restype = i
+    lib.splat_io_probe.argtypes = [i, p, p, p, p, p] + [i] * 5 + [p]
+    lib.splat_io_probe.restype = i
+    return lib
+
+
+def _check(name, t, shape, dtype, device):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_points(iy, ix, g):
+    if iy.dim() != 3:
+        raise ValueError(f"iy must be [B, nblocks, P], got {tuple(iy.shape)}")
+    B, nb, P = iy.shape
+    _check("iy", iy, (B, nb, P), torch.float32, iy.device)
+    _check("ix", ix, (B, nb, P), torch.float32, iy.device)
+    _check("g", g, (B, nb, P, C), torch.bfloat16, iy.device)
+    if iy.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the probes run on cuda or cpu, not {iy.device}")
+    return B, nb, P
+
+
+def _check_window_args(oy0, ox0, iy, ix, g, H, W, WY, WX, stage):
+    B, nb, P = _check_points(iy, ix, g)
+    _check("oy0", oy0, (B, nb), torch.int32, iy.device)
+    _check("ox0", ox0, (B, nb), torch.int32, iy.device)
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
+    if P % _P_MULTIPLE or WY % 16 or not 16 <= WY <= min(128, H) \
+            or (WX * C) % 128 or not 0 < WX <= W:
+        raise ValueError(
+            f"the window probe takes P % {_P_MULTIPLE} == 0, WY in 16..128 "
+            f"(a multiple of 16, <= H) and WX % 4 == 0 (<= W); got P={P}, "
+            f"WY={WY}, WX={WX}, H={H}, W={W}")
+    return B, nb, P
+
+
+def _tents(oy0, ox0, iy, ix, H, W, WY, WX, stage):
+    """(oy [n, P, WY], zx [n, P, WX]) bf16 for n flattened blocks, with the
+    TPU kernel's op order and roundings."""
+    x0f = torch.clamp_max(torch.floor(ix), W - 2.0)
+    y0f = torch.clamp_max(torch.floor(iy), H - 2.0)
+    wy1 = (iy - y0f)[..., None]
+    wx1 = (ix - x0f)[..., None]
+    yl0 = (y0f - oy0.float()[:, None])[..., None]
+    xl0 = (x0f - ox0.float()[:, None])[..., None]
+    ylanes = torch.arange(WY, dtype=torch.float32, device=iy.device)
+    xlanes = torch.arange(WX, dtype=torch.float32, device=iy.device)
+    oy = torch.clamp_min(1.0 - torch.abs(ylanes - yl0 - wy1), 0.0).to(torch.bfloat16)
+    if stage == "bf16build":
+        xc = (xl0 + wx1).to(torch.bfloat16)
+        zx = torch.clamp_min(1.0 - torch.abs(xlanes.to(torch.bfloat16) - xc), 0.0)
+    else:
+        zx = torch.clamp_min(1.0 - torch.abs(xlanes - xl0 - wx1), 0.0).to(torch.bfloat16)
+    return oy, zx
+
+
+def _window_operand(zx, g, stage):
+    """Z [n, P, WX*C] bf16: zx * tile(g), or zx alone (no_tile)."""
+    n, P, WX = zx.shape
+    if stage == "no_tile":
+        return zx[..., None].expand(n, P, WX, C).reshape(n, P, WX * C)
+    if stage == "dottile":
+        cols = torch.arange(WX * C, device=g.device)
+        tilemat = (cols[None] % C == torch.arange(C, device=g.device)[:, None]).float()
+        gt = torch.matmul(g.float(), tilemat).to(torch.bfloat16)
+    else:
+        gt = g.repeat(1, 1, WX)
+    return zx.repeat_interleave(C, dim=-1) * gt
+
+
+def _chunk_blocks(P, WX, WY):
+    """Blocks per chunk of the plain version: ~256 MB of f32 operand."""
+    return max(1, (64 << 20) // (P * max(WX * C, WY)))
+
+
+def splat_window_probe_reference(oy0, ox0, iy, ix, g, H, W, WY, WX, stage):
+    """Plain PyTorch version of P1 (the TPU kernel's arithmetic in tensor
+    ops: bf16 tents and operands, products and sums in f32), chunked over
+    point blocks. Returns out [B, H, W * C] f32."""
+    B, nb, P = _check_window_args(oy0, ox0, iy, ix, g, H, W, WY, WX, stage)
+    dev = iy.device
+    WC = W * C
+    out = torch.zeros(B * H * WC, dtype=torch.float32, device=dev)
+    flat = [t.reshape(B * nb, *t.shape[2:]) for t in (oy0, ox0, iy, ix, g)]
+    step = _chunk_blocks(P, WX, WY)
+    for s in range(0, B * nb, step):
+        o0, x0, py, px, pg = (t[s:s + step] for t in flat)
+        b = torch.arange(s, s + o0.shape[0], device=dev) // nb
+        oy, zx = _tents(o0, x0, py, px, H, W, WY, WX, stage)
+        if stage == "z_only":
+            colsum = _window_operand(zx, pg, stage).float().sum(dim=1)
+            out.view(B, H * WC)[:, : WX * C].index_add_(0, b, colsum)
+            continue
+        rhs = oy if stage == "oy_only" else _window_operand(zx, pg, stage)
+        T = torch.bmm(oy.transpose(1, 2).float(), rhs.float())  # [n, WY, cols]
+        rows = torch.arange(WY, device=dev)
+        cols = torch.arange(T.shape[-1], device=dev)
+        if stage in ("static_store", "oy_only"):
+            r0 = torch.zeros_like(o0)
+            c0 = torch.zeros_like(x0)
+        else:
+            r0, c0 = o0, x0 * C
+        idx = ((b[:, None] * H + r0[:, None] + rows) * WC)[..., None] \
+            + (c0[:, None] + cols)[:, None, :]
+        out.index_add_(0, idx.reshape(-1), T.reshape(-1))
+    return out.reshape(B, H, WC)
+
+
+def splat_window_probe(oy0, ox0, iy, ix, g, H, W, WY, WX, stage):
+    """P1: the windowed tent-matrix splat of one plane, stage `stage`.
+
+    oy0, ox0: [B, nblocks] i32 window origins (oy0 a multiple of 8, ox0 of
+    4; the window must lie inside the plane). iy, ix: [B, nblocks, P] f32
+    pixel coordinates in [0, H-1] x [0, W-1]. g: [B, nblocks, P, 32] bf16.
+    Returns out [B, H, W * 32] f32:
+
+        full, dottile, no_tile, bf16build:
+            out[b, oy0:oy0+WY, ox0*C:(ox0+WX)*C] += oy^T @ Z per block
+        static_store:  the same window product added at the origin
+        oy_only:       out[b, :WY, :WY] += oy^T @ oy
+        z_only:        out[b, 0, :WX*C] += sum over the points of Z
+
+    with oy[p, y] = max(0, 1 - |y - (y0f - oy0) - (iy - y0f)|) in bf16,
+    zx likewise in x (every op rounded to bf16 for bf16build), y0f =
+    min(floor(iy), H-2), and Z = zx * tile(g) (zx alone for no_tile; the
+    tile as a product with a 0/1 matrix for dottile).
+
+    On a CUDA tensor this launches the kernel of csrc/splat_probes.cu on the
+    current stream and counts it in `splat_window_probe.launches`; on a CPU
+    tensor it runs splat_window_probe_reference.
+    """
+    B, nb, P = _check_window_args(oy0, ox0, iy, ix, g, H, W, WY, WX, stage)
+    if iy.device.type == "cpu":
+        return splat_window_probe_reference(oy0, ox0, iy, ix, g, H, W, WY, WX, stage)
+    out = torch.zeros((B, H, W * C), dtype=torch.float32, device=iy.device)
+    rc = _lib().splat_window_probe(
+        oy0.data_ptr(), ox0.data_ptr(), iy.data_ptr(), ix.data_ptr(), g.data_ptr(),
+        out.data_ptr(), B, nb, P, H, W, WY, WX, STAGES.index(stage),
+        torch.cuda.current_stream(iy.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"splat_window_probe ({stage}) launch failed with CUDA error {rc}")
+    splat_window_probe.launches += 1
+    return out
+
+
+splat_window_probe.launches = 0
+
+
+def _check_io_args(variant, iy, ix, ixy, g, H, W):
+    B, nb, P = _check_points(iy, ix, g)
+    _check("ixy", ixy, (B, nb, 2, P), torch.float32, iy.device)
+    if variant not in IO_VARIANTS:
+        raise ValueError(f"variant must be one of {IO_VARIANTS}, got {variant!r}")
+    if P % 4 or H < 1 or W < 1:
+        raise ValueError(f"the io probe takes P % 4 == 0, got P={P}")
+    return B, nb, P
+
+
+def splat_io_probe_reference(variant, iy, ix, ixy, g, H, W):
+    """Plain PyTorch version of P2. Returns out [B, H, W * C] f32."""
+    B, nb, P = _check_io_args(variant, iy, ix, ixy, g, H, W)
+    out = torch.zeros((B, H, W * C), dtype=torch.float32, device=iy.device)
+    if variant == "empty":
+        out[:, :EMPTY_ROWS, :EMPTY_COLS] = float(nb)
+    elif variant == "read_g":
+        out[:, 0, :C] = g.float().sum(dim=(1, 2))
+    elif variant == "read_ixy_P1":
+        out[:, 0, 0] = (iy + ix).sum(dim=(1, 2))
+    elif variant == "read_ixy_2P":
+        out[:, 0, 0] = ixy.sum(dim=(1, 2, 3))
+    else:  # transpose_2P
+        ylanes = torch.arange(64, dtype=torch.float32, device=iy.device)
+        oy = torch.clamp_min(1.0 - torch.abs(ylanes - ixy[:, :, 0, :, None]), 0.0)
+        out[:, 0, 0] = (oy + 0.0 * ixy[:, :, 1, :, None]).sum(dim=(1, 2, 3))
+    return out
+
+
+def splat_io_probe(variant, iy, ix, ixy, g, H, W):
+    """P2: one streaming floor of the splat. iy, ix: [B, nblocks, P] f32;
+    ixy: [B, nblocks, 2, P] f32 (iy and ix stacked per block); g:
+    [B, nblocks, P, 32] bf16. Each variant reads only its inputs and
+    returns out [B, H, W * 32] f32:
+
+        empty:         out[b, :64, :2048] = nblocks (each block adds 1.0)
+        read_g:        out[b, 0, :32] = sum of g over the points
+        read_ixy_P1:   out[b, 0, 0] = sum(iy + ix), from iy and ix
+        read_ixy_2P:   out[b, 0, 0] = the same sum, from ixy
+        transpose_2P:  out[b, 0, 0] = sum_p sum_{y<64} max(0, 1 - |y - iy|)
+
+    On a CUDA tensor this launches the variant's kernel and counts it in
+    `splat_io_probe.launches`; on a CPU tensor it runs
+    splat_io_probe_reference.
+    """
+    B, nb, P = _check_io_args(variant, iy, ix, ixy, g, H, W)
+    if iy.device.type == "cpu":
+        return splat_io_probe_reference(variant, iy, ix, ixy, g, H, W)
+    out = torch.zeros((B, H, W * C), dtype=torch.float32, device=iy.device)
+    rc = _lib().splat_io_probe(
+        IO_VARIANTS.index(variant), iy.data_ptr(), ix.data_ptr(), ixy.data_ptr(),
+        g.data_ptr(), out.data_ptr(), B, nb, P, H, W,
+        torch.cuda.current_stream(iy.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"splat_io_probe ({variant}) launch failed with CUDA error {rc}")
+    splat_io_probe.launches += 1
+    return out
+
+
+splat_io_probe.launches = 0

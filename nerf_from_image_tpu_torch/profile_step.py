@@ -1,13 +1,15 @@
 """Where the time of one full-width step goes on the card.
 
     python -m nerf_from_image_tpu_torch.profile_step [--plane_dtype bfloat16]
-        [--step render|inversion]
+        [--step render|inversion] [--loss mse|vgg]
 
 'render' is the bench step (Generator(512, 1.4, attention_values=10),
 B=4, 128^2 rays, 64 coarse + 64 fine samples, pairwise merge, splat
-backward, grads w.r.t. ws and pose). 'inversion' is one 'mse' inversion
-step at the same width, from the average w and a perturbed pose, towards
-a target rendered from a random latent (the case chip_smoke.py runs).
+backward, grads w.r.t. ws and pose). 'inversion' is one inversion step at
+the same width with the loss of --loss ('vgg': LPIPS with random VGG16
+features from a seed, 15 crop augmentations), from the average w and a
+perturbed pose, towards a target rendered from a random latent (the cases
+chip_smoke.py runs).
 Warms up once, then traces two steps with torch.profiler and prints the
 device time by kernel, the device-busy share of the wall time, and one
 JSON line with the totals.
@@ -29,6 +31,7 @@ from nerf_from_image_tpu_torch.engine.inversion import (
 )
 from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
 from nerf_from_image_tpu_torch.models.generator import Generator
+from nerf_from_image_tpu_torch.models.lpips import LPIPS
 from nerf_from_image_tpu_torch.utils.device import resolve_device, set_strict_f32
 
 BATCH, RES, SAMPLES = 4, 128, 64
@@ -68,12 +71,13 @@ def render_step(model, cfg, dev):
     return step
 
 
-def inversion_case(model, cfg, dev, steps):
-    """An 'mse' inversion of `steps` steps from the average w and a
-    perturbed bench pose, towards the render of a random latent at the
-    true pose. Returns (invert, z0, pose params, target image)."""
+def inversion_case(model, cfg, dev, steps, loss="mse", lpips=None):
+    """An inversion of `steps` steps with `loss` ('vgg' takes an LPIPS
+    module) from the average w and a perturbed bench pose, towards the
+    render of a random latent at the true pose. Returns (invert, z0, pose
+    params, the target's render output)."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    inv_cfg = InversionConfig(steps=steps, loss="mse")
+    inv_cfg = InversionConfig(steps=steps, loss=loss)
     pose = bench_poses(BATCH, dev)
     focal = torch.full((BATCH,), 1.2, device=dev)
     with torch.no_grad():
@@ -84,8 +88,8 @@ def inversion_case(model, cfg, dev, steps):
     p = pose_params_from_matrix(pose, focal, inv_cfg.camera_flipped)
     noise = torch.randn((BATCH, 6), generator=gen, device=dev)
     p = p._replace(q=p.q + 0.03 * noise[:, :4], t2=p.t2 + 0.02 * noise[:, 4:])
-    invert = make_invert_fn(inv_cfg, cfg, model, device=dev)
-    return invert, z0, p, target.rgb
+    invert = make_invert_fn(inv_cfg, cfg, model, lpips=lpips, device=dev)
+    return invert, z0, p, target
 
 
 def _device_us(evt) -> float:
@@ -99,6 +103,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--plane_dtype", default=None, choices=(None, "bfloat16"))
     parser.add_argument("--step", default="render", choices=("render", "inversion"))
+    parser.add_argument("--loss", default="mse", choices=("mse", "vgg"))
     parser.add_argument("--top", type=int, default=15)
     args = parser.parse_args(argv)
 
@@ -114,8 +119,11 @@ def main(argv=None) -> None:
     if args.step == "render":
         step = render_step(model, cfg, dev)
     else:
-        invert, z0, pose, target = inversion_case(model, cfg, dev, steps=1)
-        step = lambda: invert(z0, pose, target)  # noqa: E731
+        lpips = LPIPS(torch.Generator().manual_seed(4), device=dev) \
+            if args.loss == "vgg" else None
+        invert, z0, pose, target = inversion_case(model, cfg, dev, steps=1,
+                                                  loss=args.loss, lpips=lpips)
+        step = lambda: invert(z0, pose, target.rgb)  # noqa: E731
 
     step()
     torch.cuda.synchronize()
@@ -133,7 +141,8 @@ def main(argv=None) -> None:
     # of the kernels they launch.
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
     busy_us = sum(_device_us(e) for e in kernels)
-    print(f"{args.step} plane_dtype={args.plane_dtype or 'float32'}: wall {wall_us / steps / 1e3:.1f} "
+    label = args.step if args.step == "render" else f"inversion loss={args.loss}"
+    print(f"{label} plane_dtype={args.plane_dtype or 'float32'}: wall {wall_us / steps / 1e3:.1f} "
           f"ms/step, device busy {busy_us / steps / 1e3:.1f} ms/step "
           f"({100 * busy_us / wall_us:.1f}% of wall)")
     for e in kernels[: args.top]:
@@ -145,6 +154,7 @@ def main(argv=None) -> None:
         print(f"{_device_us(e) / steps / 1e3:9.3f} ms/step  x{e.count // steps:<5d} {e.key}")
     print(json.dumps({
         "step": args.step,
+        "loss": args.loss if args.step == "inversion" else None,
         "plane_dtype": args.plane_dtype or "float32",
         "wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,

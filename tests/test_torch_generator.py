@@ -16,10 +16,15 @@ import pytest
 import torch
 
 from nerf_from_image_tpu.models.generator import Generator as JaxGenerator
+from nerf_from_image_tpu.models.lpips import LPIPS as JaxLPIPS
 from nerf_from_image_tpu.ops.triplane import pack_corners as jax_pack_corners
 from nerf_from_image_tpu_torch.models.generator import Generator
+from nerf_from_image_tpu_torch.models.lpips import LPIPS
 from nerf_from_image_tpu_torch.ops.triplane import pack_corners
-from nerf_from_image_tpu_torch.utils.weights import generator_state_dict_from_jax
+from nerf_from_image_tpu_torch.utils.weights import (
+    generator_state_dict_from_jax,
+    lpips_state_dict_from_jax,
+)
 
 # The render-level config of tests/test_splat.py.
 TINY = dict(latent_dim=64, scene_range=1.4, attention_values=4, use_sdf=True,
@@ -38,6 +43,19 @@ def tiny_pair():
     return jm, variables, tm
 
 
+@functools.lru_cache(maxsize=1)
+def lpips_pair():
+    """(JAX LPIPS, its variables, the port's LPIPS with the same weights):
+    the full VGG16 trunk with flax's random initialization."""
+    jm = JaxLPIPS()
+    zeros = jnp.zeros((1, 16, 16, 3))
+    variables = jax.jit(jm.init)(jax.random.key(1), zeros, zeros)
+    tm = LPIPS(device="cpu")
+    tm.load_state_dict(lpips_state_dict_from_jax(jax.tree.map(np.asarray, variables)),
+                       strict=True)
+    return jm, variables, tm
+
+
 @pytest.fixture(autouse=True, scope="module")
 def release_memory():
     """Runs a module's tests on one torch thread, then hands back what they
@@ -45,12 +63,15 @@ def release_memory():
     them side by side with its training and multi-host tests: torch's
     default of one thread per core oversubscribes the CPU, and JAX's
     compile caches and the heap's freed arenas would otherwise stay
-    resident in the worker. Every test_torch_* module imports this."""
+    resident in the worker. Every test_torch_* module imports this.
+
+    The model pairs (tiny_pair, lpips_pair: ~120 MB of weights) stay
+    cached: a worker that re-enters a module would otherwise pay their
+    JAX initialization, a compile, each time."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-    tiny_pair.cache_clear()
     jax.clear_caches()
     gc.collect()
     ctypes.CDLL(None).malloc_trim(0)
