@@ -9,11 +9,17 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     and CUDA versions, and the build of every kernel in csrc/ (one nvcc per
     source, all started together).
  2. The splat kernel (K1, csrc/splat.cu) against its plain PyTorch version
-    on the card: at full width (B=4, 3 x 256^2 x 32 f32 planes, N =
-    128*128*64 ray-coherent points of the bench camera) and on a small set
-    of edge cases (coordinates exactly +-1, outside [-1, 1], on the
-    H-2/W-2 base cell). Also times the kernel, the plain version and one
-    `index_put_(accumulate=True)` call computing the same gradient.
+    on the card, at full width (B=4, 3 x 256^2 x 32 f32 planes, N =
+    128*128*64 points): the coarse and the fine points of one bench render
+    step with their gradients, as the render hands them over (ray grid,
+    16x16x4 blocks); the coarse points with scattered points in some blocks
+    (footprints too large for shared memory); the no-grid order of
+    a padded chunk; and small edge cases (coordinates exactly +-1, outside
+    [-1, 1], on the H-2/W-2 base cell; without a grid and as a ray grid
+    that the blocks do not divide); the coarse points also in two smaller
+    block shapes. Prints each case's misfit blocks and the bytes it
+    reduced into L2, and times each; times the plain version and one
+    `index_put_(accumulate=True)` call on the coarse points.
  3. A small render on the card against the same render on the CPU, values
     and (ws, pose) gradients; a small 'vgg' loss (LPIPS on crop-augmented
     copies, one transform for both) on the card against the CPU, value
@@ -85,8 +91,40 @@ def rel_err(a, b):
     return float((a - b).abs().max()), float((a - b).abs().max()) / denom
 
 
-def phase_kernel(dev):
-    """K1 against its plain version, full width and edge cases; timings."""
+def k1_case(name, coords, g, H, W, img_shape=None, block_shape=None):
+    """K1 on one input against its plain version: (abs err, rel err,
+    stats) where stats = (misfit (block, plane) pairs, all pairs, bytes
+    reduced into device memory) as the kernel counted them."""
+    import torch
+
+    from nerf_from_image_tpu_torch.kernels.splat import (
+        SPLAT_BLOCK,
+        splat3_backward,
+        splat3_backward_reference,
+    )
+
+    stats = torch.zeros(3, dtype=torch.int64, device=g.device)
+    got = splat3_backward(coords, g, H, W, img_shape, block_shape or SPLAT_BLOCK,
+                          stats=stats)
+    ref = splat3_backward_reference(coords, g, H, W)
+    torch.cuda.synchronize()
+    abs_err, rel = rel_err(got, ref)
+    misfit, pairs, reduced = (int(v) for v in stats.tolist())
+    log(f"K1 {name}: B={g.shape[0]} N={g.shape[1]} planes 3x{H}x{W}x{g.shape[2]}, "
+        f"grid {img_shape} blocks {block_shape or SPLAT_BLOCK}: max abs err {abs_err:.3e}, "
+        f"max rel err {rel:.3e} (max |grad| {float(ref.abs().max()):.4f}); "
+        f"misfit blocks {misfit}/{pairs} ({100 * misfit / max(pairs, 1):.3f}%), "
+        f"{reduced / 1e9:.4f} GB reduced into L2")
+    if not (torch.isfinite(ref).all() and rel < KERNEL_REL_TOL):
+        raise AssertionError(f"K1 {name} disagrees with its plain version: {rel}")
+    return abs_err, rel, (misfit, pairs, reduced)
+
+
+def phase_kernel(dev, model):
+    """K1 against its plain version: the coarse and fine points of a bench
+    render step with their gradients, a misfit geometry, the no-grid order
+    of a padded chunk, and edge cases; each timed, the coarse points also
+    with the plain version and one index_put_ call."""
     import torch
 
     from nerf_from_image_tpu_torch.engine.render import RenderConfig, prepare_rays
@@ -97,30 +135,50 @@ def phase_kernel(dev):
     )
     from nerf_from_image_tpu_torch.ops.sampling import compute_query_points_from_rays
     from nerf_from_image_tpu_torch.profile_splat import cuda_ms
-    from nerf_from_image_tpu_torch.profile_step import bench_poses
+    from nerf_from_image_tpu_torch.profile_step import bench_poses, splat_calls
 
-    cfg = RenderConfig(resolution=RES, depth_samples_per_ray=SAMPLES, scene_range=1.4)
-    pose = bench_poses(BATCH, dev)
-    focal = torch.full((BATCH,), 1.2, device=dev)
-    o, d, near, far = prepare_rays(cfg, pose, focal)
+    cfg = RenderConfig(resolution=RES, depth_samples_per_ray=SAMPLES, scene_range=1.4,
+                       query_chunk=None, plane_splat=True)
+    calls = splat_calls(model, cfg, dev)
+    # The coarse points are the stratified samples of the bench camera.
+    o, d, near, far = prepare_rays(cfg, bench_poses(BATCH, dev),
+                                   torch.full((BATCH,), 1.2, device=dev))
     pts, _ = compute_query_points_from_rays(o, d, near, far, SAMPLES)
-    coords = (pts.reshape(BATCH, -1, 3) / cfg.scene_range).contiguous()
+    coarse_pts = pts.reshape(BATCH, -1, 3) / cfg.scene_range
+    is_coarse = [bool(torch.allclose(c[0], coarse_pts)) for c in calls]
+    if len(calls) != 2 or sorted(is_coarse) != [False, True]:
+        raise AssertionError(f"expected one coarse and one fine splat call, got {is_coarse}")
+    coarse, fine = (calls[0], calls[1]) if is_coarse[0] else (calls[1], calls[0])
+    del calls, pts, coarse_pts
+    coords, g, H, W, grid, block = coarse
+    if grid != (RES, RES, SAMPLES):
+        raise AssertionError(f"the render handed the op the grid {grid}")
     N = coords.shape[1]
+
+    # Scattered points in the first slab of the first tile row: 8 blocks
+    # per batch element whose footprints cannot fit the window.
     gen = torch.Generator(device=dev).manual_seed(1)
-    g = torch.randn((BATCH, N, PLANE_C), generator=gen, device=dev)
-    H = W = PLANE_RES
+    misfit = coords.clone().reshape(BATCH, RES, RES, SAMPLES, 3)
+    misfit[:, :16, :, :4] = torch.rand((BATCH, 16, RES, 4, 3), generator=gen,
+                                       device=dev) * 2.0 - 1.0
+    misfit = misfit.reshape(BATCH, N, 3)
+    # The points of a render chunked at 100,000 points: padded with zero
+    # points (and zero gradients) to 11 chunks, handed over with no grid.
+    pad = 11 * 100_000 - N
+    padded = torch.cat((coords, coords.new_zeros(BATCH, pad, 3)), dim=1)
+    padded_g = torch.cat((g, g.new_zeros(BATCH, pad, PLANE_C)), dim=1)
+    cases = {
+        "coarse": (coords, g, H, W, grid, block),
+        "fine": fine,
+        "misfit": (misfit, g, H, W, grid, block),
+        "no_grid": (padded, padded_g, H, W, None, block),
+    }
+    # Smaller blocks than the default: two CTAs share an SM.
+    for other in ((16, 8, 4), (8, 8, 4)):
+        cases["coarse, blocks " + "x".join(map(str, other))] = (coords, g, H, W, grid, other)
 
-    got = splat3_backward(coords, g, H, W)
-    ref = splat3_backward_reference(coords, g, H, W)
-    torch.cuda.synchronize()
-    abs_full, rel_full = rel_err(got, ref)
-    log(f"K1 full width: B={BATCH} N={N} planes 3x{H}x{W}x{PLANE_C}: "
-        f"max abs err {abs_full:.3e}, max rel err {rel_full:.3e} "
-        f"(max |grad| {float(ref.abs().max()):.4f})")
-    if not rel_full < KERNEL_REL_TOL:
-        raise AssertionError(f"K1 disagrees with its plain version: {rel_full}")
-
-    # Edge cases on a small plane: exact +-1, outside the box, base cell.
+    # Edge cases on a small plane: exact +-1, outside the box, base cell;
+    # without a grid, then as a ray grid that no block shape divides.
     h = w = 16
     base = (h - 2) / (h - 1) * 2.0 - 1.0
     special = torch.tensor(
@@ -129,30 +187,34 @@ def phase_kernel(dev):
          [base, base, base], [base, 1.0, 0.999], [0.999, base, -0.999]],
         device=dev,
     )
-    rand = torch.rand((2, 500, 3), generator=gen, device=dev) * 2.4 - 1.2
+    rand = torch.rand((2, 501, 3), generator=gen, device=dev) * 2.4 - 1.2
     edge = torch.cat((special.expand(2, -1, -1), rand), dim=1).contiguous()
     ge = torch.randn((2, edge.shape[1], PLANE_C), generator=gen, device=dev)
-    abs_edge, rel_edge = rel_err(
-        splat3_backward(edge, ge, h, w), splat3_backward_reference(edge, ge, h, w)
-    )
-    torch.cuda.synchronize()
-    log(f"K1 edge cases ({edge.shape[1]} points, 16x16 planes): "
-        f"max abs err {abs_edge:.3e}, max rel err {rel_edge:.3e}")
-    if not rel_edge < KERNEL_REL_TOL:
-        raise AssertionError(f"K1 disagrees on the edge cases: {rel_edge}")
+    max_abs, max_rel = 0.0, 0.0
+    for name, grid_e in (("edge cases", None), ("edge cases, ragged grid", (5, 6, 17))):
+        a, r, _ = k1_case(name, edge, ge, h, w, grid_e, (4, 4, 4) if grid_e else None)
+        max_abs, max_rel = max(max_abs, a), max(max_rel, r)
 
-    # The one-call yardstick: index_put_(accumulate=True) of the same
-    # corners (indices and weighted rows prepared outside the timing).
+    results = {}
+    for name, (c, gc, hh, ww, gr, bl) in cases.items():
+        a, r, (n_mis, n_pairs, reduced) = k1_case(name, c, gc, hh, ww, gr, bl)
+        max_abs, max_rel = max(max_abs, a), max(max_rel, r)
+        ms = cuda_ms(lambda: splat3_backward(c, gc, hh, ww, gr, bl), iters=20, warmup=3)
+        results[name] = {"ms": ms, "l2_reduction_bytes": reduced,
+                         "misfit_share": n_mis / max(n_pairs, 1), "max_rel_err": r}
+        log(f"K1 {name}: {ms:.4f} ms per launch")
+
+    # The one-call yardstick on the coarse points: index_put_(accumulate=
+    # True) of the same corners (indices and weighted rows made untimed).
+    ref = splat3_backward_reference(coords, g, H, W)
     idx, vals = splat_corners(coords, g, H, W)
     lib_out = torch.zeros(BATCH * 3 * H * W, PLANE_C, device=dev)
     lib_out.index_put_((idx,), vals, accumulate=True)
-    abs_lib, rel_lib = rel_err(lib_out.reshape(ref.shape), ref)
+    _, rel_lib = rel_err(lib_out.reshape(ref.shape), ref)
     log(f"index_put_ yardstick vs plain version: max rel err {rel_lib:.3e}")
     if not rel_lib < KERNEL_REL_TOL:
         raise AssertionError(f"the yardstick computes another function: {rel_lib}")
-    del got, ref
-
-    kernel_ms = cuda_ms(lambda: splat3_backward(coords, g, H, W), iters=20, warmup=3)
+    del ref
     plain_ms = cuda_ms(lambda: splat3_backward_reference(coords, g, H, W), iters=3)
     library_ms = cuda_ms(
         lambda: lib_out.index_put_((idx,), vals, accumulate=True), iters=3
@@ -163,17 +225,20 @@ def phase_kernel(dev):
     n_ops = BATCH * N * 3 * 4 * PLANE_C * 2  # weight x g, accumulate
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = n_ops / PEAK_F32_FLOPS * 1e3
-    log(f"K1 times: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+    kernel_ms = results["coarse"]["ms"]
+    log(f"K1 times (coarse points): kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, "
         f"index_put_ {library_ms:.3f} ms; bound {max(bytes_ms, ops_ms):.4f} ms "
         f"({n_bytes / 1e9:.3f} GB -> {bytes_ms:.4f} ms, "
-        f"{n_ops / 1e9:.2f} GFLOP f32 -> {ops_ms:.4f} ms)")
+        f"{n_ops / 1e9:.2f} GFLOP f32 -> {ops_ms:.4f} ms), "
+        f"{100 * max(bytes_ms, ops_ms) / kernel_ms:.1f}% of bound")
+    torch.cuda.empty_cache()
     return {
         "name": "splat3_backward",
         "route": "cuda",
         "source": "nerf_from_image_tpu_torch/csrc/splat.cu",
         "replaces": "nerf_from_image_tpu/ops/pallas/splat.py:88",
-        "max_abs_err": max(abs_full, abs_edge),
-        "max_rel_err": max(rel_full, rel_edge),
+        "max_abs_err": max_abs,
+        "max_rel_err": max_rel,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -181,6 +246,9 @@ def phase_kernel(dev):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "dense_product_ms": None,
+        "l2_reduction_bytes": results["coarse"]["l2_reduction_bytes"],
+        "misfit_share": results["coarse"]["misfit_share"],
+        "cases": results,
     }
 
 
@@ -508,15 +576,15 @@ def main() -> int:
     libs = build.build_all()
     log(f"built {len(libs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
 
-    summary = phase_kernel(dev)
-    phase_small_render(dev)
-    phase_small_vgg(dev)
-    probes = phase_probes(dev)
-
     model = Generator(latent_dim=512, scene_range=1.4, attention_values=10,
                       use_sdf=True, device=dev,
                       generator=torch.Generator().manual_seed(0))
     model.requires_grad_(False)
+    summary = phase_kernel(dev, model)
+    phase_small_render(dev)
+    phase_small_vgg(dev)
+    probes = phase_probes(dev)
+
     splat3_backward.launches = 0  # the main path starts here
     phase_render(dev, model, None, splat3_backward)
     phase_render(dev, model, "bfloat16", splat3_backward)

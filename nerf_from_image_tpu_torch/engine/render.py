@@ -11,9 +11,13 @@ once per pass. Randomness comes from an explicit torch.Generator;
 
 With `plane_splat` every field query goes through
 kernels/splat.triplane_sample_mean, whose plane gradient is the CUDA
-kernel of csrc/splat.cu. That kernel is exact for any point geometry, so
-unlike the JAX package no query falls back to another sampler, chunked or
-not, and the TPU kernel's block and window settings have no counterpart.
+kernel of csrc/splat.cu. As in the JAX package, a query whose points form
+whole image rows (the unchunked render, or chunks of whole rows) hands
+the op its ray grid and `splat_block`, and the kernel accumulates
+ray-coherent blocks on chip; any other query (a padded chunk) hands it
+none. The kernel is exact for any point geometry, so unlike the JAX
+package no query falls back to another sampler, and the TPU kernel's
+window and residual settings have no counterpart.
 """
 
 from __future__ import annotations
@@ -52,6 +56,9 @@ class RenderConfig:
     # Triplane sampling through the op with the hand-written splat
     # backward (first-order only) instead of autograd's scatter-add.
     plane_splat: bool = False
+    # Ray-coherent blocks of the splat backward: an image tile of th x tw
+    # rays by ts consecutive samples.
+    splat_block: Tuple[int, int, int] = (16, 16, 4)
     # 'pairwise': sort-free dual-list compositing; 'sort': argsort merge.
     merge_mode: str = "pairwise"
 
@@ -87,8 +94,9 @@ def render_field(
 ) -> Tuple[compositing.CompositeOutput, Dict[str, torch.Tensor]]:
     """Renders a radiance field along the given rays.
 
-    field_fn(points [B, N, 3], outputs) -> {'sigma': [B, N], 'rgb':
-    [B, N, C]}. Returns (composite maps [B, H, W, ...], aux).
+    field_fn(points [B, N, 3], outputs, splat_grid) -> {'sigma': [B, N],
+    'rgb': [B, N, C]}, where splat_grid is None or (img_shape, block_shape)
+    of the points' ray grid. Returns (composite maps [B, H, W, ...], aux).
     """
     B, H, W, _ = ray_origins.shape
     S = config.depth_samples_per_ray
@@ -104,18 +112,24 @@ def render_field(
     def query(points):
         flat = points.reshape(B, -1, 3)
         n_points = flat.shape[1]
+        s_pass = points.shape[-2]
+        row = W * s_pass  # points per image row, ray-major and sample-minor
         chunk = config.query_chunk
         if chunk and n_points > chunk:
             # Pad to a whole number of chunks so the memory bound holds for
             # any point count; each chunk is recomputed in the backward.
             n_chunks = -(-n_points // chunk)
             pad = n_chunks * chunk - n_points
+            # A chunk of whole image rows is itself a ray grid.
+            grid = None
+            if config.plane_splat and pad == 0 and chunk % row == 0:
+                grid = ((chunk // row, W, s_pass), config.splat_block)
             if pad:
                 flat = torch.cat((flat, flat.new_zeros(B, pad, 3)), dim=1)
             outs = [
                 checkpoint(
                     field_fn, flat[:, i * chunk : (i + 1) * chunk], ("sigma", "rgb"),
-                    use_reentrant=False,
+                    grid, use_reentrant=False,
                 )
                 for i in range(n_chunks)
             ]
@@ -124,11 +138,11 @@ def render_field(
                 for k in outs[0]
             }
         else:
-            out = field_fn(flat, ("sigma", "rgb"))
-        n_samples = points.shape[-2]
+            grid = ((H, W, s_pass), config.splat_block) if config.plane_splat else None
+            out = field_fn(flat, ("sigma", "rgb"), grid)
         return {
-            k: v.reshape(B, H, W, n_samples) if k == "sigma"
-            else v.reshape(B, H, W, n_samples, -1)
+            k: v.reshape(B, H, W, s_pass) if k == "sigma"
+            else v.reshape(B, H, W, s_pass, -1)
             for k, v in out.items()
         }
 
@@ -193,12 +207,14 @@ def render_field(
 def make_field_fn(model, planes, attention_values=None, splat: bool = False,
                   table_dtype: Optional[str] = None):
     """Binds Generator.sample_field over fixed planes:
-    field_fn(points [B, N, 3], outputs) -> dict of field values."""
+    field_fn(points [B, N, 3], outputs, splat_grid=None) -> dict of field
+    values."""
 
-    def field_fn(points, outputs):
+    def field_fn(points, outputs, splat_grid=None):
         return model.sample_field(
             planes, points, attention_values=attention_values,
             outputs=outputs, splat=splat, table_dtype=table_dtype,
+            splat_grid=splat_grid,
         )
 
     return field_fn

@@ -9,7 +9,10 @@ Counterpart of nerf_from_image_tpu/ops/pallas/splat.py::triplane_sample_mean
   differences (u_x, u_y) the coordinate gradient needs.
 - Plane gradient: `splat3_backward`, the CUDA kernel in csrc/splat.cu on a
   CUDA tensor, its plain version `splat3_backward_reference` (index_add_
-  of the four weighted corners per plane) on a CPU tensor.
+  of the four weighted corners per plane) on a CPU tensor. The caller may
+  name the points' ray grid (img_shape, as the JAX op takes it); the kernel
+  then accumulates ray-coherent blocks of `block_shape` on chip. Without a
+  grid it blocks contiguous points. The function is the same either way.
 - Coordinate gradient (tensor ops): from (u_x, u_y), with jnp.clip's
   convention of 0.5 at an exact clip boundary written out explicitly.
 
@@ -19,7 +22,8 @@ First-order only: the backward is not itself differentiable.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -33,6 +37,16 @@ from nerf_from_image_tpu_torch.ops.triplane import (
 )
 
 
+# The JAX package's RenderConfig.splat_block: an image tile of 16 x 16 rays
+# by a slab of 4 samples per block.
+SPLAT_BLOCK = (16, 16, 4)
+# Points per block that the kernel takes (a CTA of 512 threads, two points
+# per thread).
+MAX_BLOCK_POINTS = 1024
+
+Shape3 = Tuple[int, int, int]
+
+
 def _splat_lib() -> ctypes.CDLL:
     lib = build.load("splat")
     fn = lib.splat3_backward
@@ -40,7 +54,9 @@ def _splat_lib() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return lib
@@ -64,6 +80,31 @@ def _check_splat_args(coords3: torch.Tensor, g: torch.Tensor, H: int, W: int):
         raise ValueError("splat3_backward needs contiguous coords3 and g")
     if H < 2 or W < 2:
         raise ValueError(f"planes must be at least 2x2, got {H}x{W}")
+
+
+def _is_shape3(x) -> bool:
+    return (isinstance(x, (tuple, list)) and len(x) == 3
+            and all(isinstance(v, int) and v > 0 for v in x))
+
+
+def grid_and_block(n_points: int, img_shape: Optional[Shape3],
+                   block_shape: Shape3) -> Tuple[Shape3, Shape3]:
+    """(grid, block) the kernel walks: the ray grid (Hi, Wi, S) with
+    Hi * Wi * S = n_points in blocks of (th, tw, ts), or without a grid the
+    points in order, (1, 1, N) in blocks of (1, 1, th * tw * ts)."""
+    if not _is_shape3(block_shape):
+        raise ValueError(f"block_shape must be 3 positive ints, got {block_shape}")
+    n_block = math.prod(block_shape)
+    if n_block > MAX_BLOCK_POINTS:
+        raise ValueError(
+            f"block_shape {tuple(block_shape)} has {n_block} points; the kernel "
+            f"takes at most {MAX_BLOCK_POINTS}")
+    if img_shape is None:
+        return (1, 1, n_points), (1, 1, n_block)
+    if not _is_shape3(img_shape) or math.prod(img_shape) != n_points:
+        raise ValueError(
+            f"img_shape {img_shape} is not a ray grid of the {n_points} points")
+    return tuple(img_shape), tuple(block_shape)
 
 
 def _corner_updates(coords3: torch.Tensor, g: torch.Tensor, H: int, W: int):
@@ -113,26 +154,49 @@ def splat_corners(coords3: torch.Tensor, g: torch.Tensor, H: int, W: int):
 
 
 def splat3_backward(
-    coords3: torch.Tensor, g: torch.Tensor, H: int, W: int
+    coords3: torch.Tensor,
+    g: torch.Tensor,
+    H: int,
+    W: int,
+    img_shape: Optional[Shape3] = None,
+    block_shape: Shape3 = SPLAT_BLOCK,
+    stats: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plane gradients [B, 3, H, W, C] f32 of the 3-plane bilinear mean.
 
+    img_shape: the points' ray grid (Hi, Wi, S), N = Hi * Wi * S, ray-major
+    and sample-minor as the render makes them, or None for points in no
+    known order; block_shape: the (th, tw, ts) blocks the kernel takes.
     On a CUDA tensor this launches the kernel of csrc/splat.cu on the
     current stream (and counts the launch in `splat3_backward.launches`);
-    on a CPU tensor it runs splat3_backward_reference. There is no other
-    path: a CUDA launch that fails raises.
+    `stats`, an int64 CUDA tensor of 3, then receives the (block, plane)
+    pairs whose footprint did not fit shared memory, all (block, plane)
+    pairs, and the bytes reduced into device memory. On a CPU tensor
+    it runs splat3_backward_reference. There is no other path: a CUDA
+    launch that fails raises.
     """
     _check_splat_args(coords3, g, H, W)
+    B, N, C = g.shape
+    (Hi, Wi, S), (th, tw, ts) = grid_and_block(N, img_shape, block_shape)
     if coords3.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("stats are counted by the CUDA kernel only")
         return splat3_backward_reference(coords3, g, H, W)
     if coords3.device.type != "cuda":
         raise ValueError(f"splat3_backward runs on cuda or cpu, not {coords3.device}")
-    B, N, C = g.shape
+    if C % 4 or (C > 32 and C % 32) or g.data_ptr() % 16:
+        raise ValueError(
+            f"the kernel takes g rows of a multiple of 4 channels (of 32 above "
+            f"32) on 16-byte boundaries, got C={C} at address {g.data_ptr():#x}")
+    if stats is not None and not (stats.dtype == torch.int64 and stats.shape == (3,)
+                                  and stats.device == g.device):
+        raise ValueError("stats must be an int64 tensor of 3 on the device of g")
     out = torch.zeros((B, 3, H, W, C), dtype=torch.float32, device=g.device)
     lib = _splat_lib()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     rc = lib.splat3_backward(
-        coords3.data_ptr(), g.data_ptr(), out.data_ptr(), B, N, H, W, C, stream
+        coords3.data_ptr(), g.data_ptr(), out.data_ptr(), B, N, H, W, C,
+        Hi, Wi, S, th, tw, ts, None if stats is None else stats.data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError(f"splat3_backward launch failed with CUDA error {rc}")
@@ -199,8 +263,9 @@ class TriplaneSampleMean(torch.autograd.Function):
     """Mean of the three bilinearly sampled plane features, [B, N, C]."""
 
     @staticmethod
-    def forward(ctx, planes, coords3, table_dtype):
+    def forward(ctx, planes, coords3, table_dtype, img_shape, block_shape):
         B, _, H, W, C = planes.shape
+        grid_and_block(coords3.shape[1], img_shape, block_shape)  # fail here, not in backward
         dt = table_dtype_of(table_dtype)
         tp = planes.to(dt) if dt is not None else planes
         es, us = [], []
@@ -211,6 +276,7 @@ class TriplaneSampleMean(torch.autograd.Function):
             del rows
         ctx.save_for_backward(coords3, *us)
         ctx.plane_hw = (H, W)
+        ctx.grid = (img_shape, block_shape)
         ctx.planes_dtype = planes.dtype
         return (es[0] + es[1] + es[2]) / 3.0
 
@@ -223,7 +289,7 @@ class TriplaneSampleMean(torch.autograd.Function):
         dplanes = dcoords = None
         if ctx.needs_input_grad[0]:
             dplanes = splat3_backward(
-                coords3.float().contiguous(), g, H, W
+                coords3.float().contiguous(), g, H, W, *ctx.grid
             ).to(ctx.planes_dtype)
         if ctx.needs_input_grad[1]:
             c_xy, c_xz, c_yz = plane_coords(coords3)
@@ -234,18 +300,22 @@ class TriplaneSampleMean(torch.autograd.Function):
             dy = g1[..., 1] + g3[..., 0]
             dz = g2[..., 1] + g3[..., 1]
             dcoords = torch.stack((dx, dy, dz), dim=-1).to(coords3.dtype)
-        return dplanes, dcoords, None
+        return dplanes, dcoords, None, None, None
 
 
 def triplane_sample_mean(
     planes: torch.Tensor,
     coords3: torch.Tensor,
     table_dtype: Optional[str] = None,
+    img_shape: Optional[Shape3] = None,
+    block_shape: Shape3 = SPLAT_BLOCK,
 ) -> torch.Tensor:
     """Mean of the three bilinear plane samples.
 
     planes: [B, 3, H, W, C] raw triplanes; coords3: [B, N, 3] normalized
     points; table_dtype: 'bfloat16' for bf16 gather tables, None for
-    strict f32. Returns [B, N, C] in coords3's dtype.
+    strict f32; img_shape, block_shape: the points' ray grid and the splat
+    blocks of the plane gradient (splat3_backward). Returns [B, N, C] in
+    coords3's dtype.
     """
-    return TriplaneSampleMean.apply(planes, coords3, table_dtype)
+    return TriplaneSampleMean.apply(planes, coords3, table_dtype, img_shape, block_shape)

@@ -93,15 +93,18 @@ class TriplanarDecoder(nn.Module):
         ])
 
     def forward(self, planes, coords, splat: bool = False,
-                table_dtype: Optional[str] = None):
+                table_dtype: Optional[str] = None, splat_grid=None):
         """planes: raw [B, 3, H, W, C] with splat=True (the splat op casts
         to table_dtype and packs itself), else corner-packed
-        [B, 3, H, W, 4C]; coords: [B, N, 3] in [-1, 1]."""
+        [B, 3, H, W, 4C]; coords: [B, N, 3] in [-1, 1]; splat_grid: None
+        or (img_shape, block_shape) of the points' ray grid for the splat
+        backward (kernels/splat.triplane_sample_mean)."""
         C = self.num_input_features
         if splat:
             if planes.shape[-1] != C:
                 raise ValueError("the splat decode takes raw (unpacked) planes")
-            x = triplane_sample_mean(planes, coords, table_dtype)
+            x = triplane_sample_mean(planes, coords, table_dtype,
+                                     *(splat_grid or ()))
             mlp_dtype = torch.bfloat16 if table_dtype == "bfloat16" else None
         elif planes.shape[-1] == 4 * C:
             c_xy, c_xz, c_yz = plane_coords(coords)
@@ -277,11 +280,13 @@ class Generator(nn.Module):
         outputs: Sequence[str] = ("sigma", "rgb"),
         splat: bool = False,
         table_dtype: Optional[str] = None,
+        splat_grid=None,
     ) -> Dict[str, torch.Tensor]:
         """Queries the radiance field at world-space points [B, N, 3].
 
         outputs: subset of {'sigma', 'rgb', 'semantics', 'coords',
-        'sdf_distance'}. Out-of-box points get zero density.
+        'sdf_distance'}. Out-of-box points get zero density. splat_grid:
+        (img_shape, block_shape) of the points' ray grid, for splat=True.
         """
         for o in outputs:
             if o == "normals":
@@ -293,7 +298,7 @@ class Generator(nn.Module):
             torch.any(torch.abs(coords) > 1.0, dim=-1).to(coords.dtype).detach()
         )
         density_or_distance, features = self.decoder(
-            planes, coords, splat, table_dtype
+            planes, coords, splat, table_dtype, splat_grid
         )
         if "sdf_distance" in outputs:
             res["sdf_distance"] = density_or_distance

@@ -30,6 +30,7 @@ from nerf_from_image_tpu_torch.engine.inversion import (
     pose_params_from_matrix,
 )
 from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
+from nerf_from_image_tpu_torch.kernels import splat
 from nerf_from_image_tpu_torch.models.generator import Generator
 from nerf_from_image_tpu_torch.models.lpips import LPIPS
 from nerf_from_image_tpu_torch.utils.device import resolve_device, set_strict_f32
@@ -69,6 +70,28 @@ def render_step(model, cfg, dev):
         return (loss,) + torch.autograd.grad(loss, (ws, pose))
 
     return step
+
+
+def splat_calls(model, cfg, dev):
+    """The plane-gradient kernel calls of one bench render step: a list of
+    the arguments (coords3, g, H, W, img_shape, block_shape) of each
+    splat3_backward call, tensors cloned, in the order autograd made them."""
+    calls = []
+    original = splat.splat3_backward
+
+    def record(coords3, g, H, W, *grid):
+        calls.append((coords3.clone(), g.clone(), H, W) + grid)
+        return original(coords3, g, H, W, *grid)
+
+    # The wrapper counts its launches on the module's splat3_backward.
+    record.launches = original.launches
+    splat.splat3_backward = record
+    try:
+        render_step(model, cfg, dev)()
+    finally:
+        splat.splat3_backward = original
+        original.launches = record.launches
+    return calls
 
 
 def inversion_case(model, cfg, dev, steps, loss="mse", lpips=None):

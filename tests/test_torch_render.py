@@ -25,6 +25,7 @@ from nerf_from_image_tpu.engine import render as jrender
 from nerf_from_image_tpu_torch.engine import augment as taug
 from nerf_from_image_tpu_torch.engine import inversion as tinv
 from nerf_from_image_tpu_torch.engine import render as trender
+from nerf_from_image_tpu_torch.kernels import splat as tsplat
 from nerf_from_image_tpu_torch.models.lpips import LPIPS
 from tests.test_torch_generator import lpips_pair, release_memory, tiny_pair  # noqa: F401
 
@@ -78,14 +79,25 @@ def _jax_render(merge, zbuffer):
     (True, "pairwise", None, False),
     (True, "sort", None, True),
     (True, "pairwise", 600, False),  # chunked, padded to whole chunks
+    (True, "pairwise", 512, False),  # chunked, each chunk 4 whole image rows
 ])
-def test_render_values_and_gradients_match_jax(splat, merge, chunk, zbuffer):
+def test_render_values_and_gradients_match_jax(splat, merge, chunk, zbuffer, monkeypatch):
+    """Also checks the ray grid each splat backward is handed: the whole
+    16x16x8 grid unchunked, a 4x16x8 grid per chunk of whole rows, none
+    for a padded chunk."""
     _, _, tm = tiny_pair()
     pose, focal = _camera()
     ws = _ws()
     tcfg = trender.RenderConfig(query_chunk=chunk, plane_splat=splat, **_common(merge, zbuffer))
     jrgb, jmask, jdepth, jgw, jgp = _jax_render(merge, zbuffer)
+    grids = []
+    splat_backward = tsplat.splat3_backward
 
+    def record(coords3, g, H, W, img_shape, block_shape):
+        grids.append((img_shape, block_shape))
+        return splat_backward(coords3, g, H, W, img_shape, block_shape)
+
+    monkeypatch.setattr(tsplat, "splat3_backward", record)
     tws = torch.from_numpy(ws).requires_grad_(True)
     tpose = torch.from_numpy(pose).requires_grad_(True)
     tout, _ = trender.render(tcfg, tm, tpose, torch.from_numpy(focal), tws, device="cpu")
@@ -94,6 +106,9 @@ def test_render_values_and_gradients_match_jax(splat, merge, chunk, zbuffer):
         assert _rel(getattr(tout, name), want) < 1e-5, name
     assert _rel(tws.grad, jgw) < TOL_INNER
     assert _rel(tpose.grad, jgp) < TOL_INNER
+    # One call per pass (coarse, fine) and chunk: 2048 points a pass.
+    img_shape, n_calls = {None: ((16, 16, 8), 2), 600: (None, 8), 512: ((4, 16, 8), 8)}[chunk]
+    assert grids == [(img_shape, tcfg.splat_block)] * (n_calls if splat else 0)
 
 
 RC_KW = dict(resolution=16, depth_samples_per_ray=8, scene_range=SR_INNER, query_chunk=None)

@@ -3,10 +3,13 @@
 On the CPU the port's plane gradient is the kernel's plain version
 (splat3_backward_reference); the JAX op runs its Pallas splat kernel in
 interpret mode, as tests/test_splat.py runs it. Both get the same seeded
-numpy inputs. Tolerances are relative to the largest |grad|, as there:
-5e-5 for f32 tables, 2e-2 for bf16 tables (the JAX op's TPU kernel takes
-g in bf16, the port's in f32).
+numpy inputs and the same ray grid and splat blocks (the port's op also
+one block shape that does not divide the grid). Tolerances are relative
+to the largest |grad|, as there: 5e-5 for f32 tables, 2e-2 for bf16
+tables (the JAX op's TPU kernel takes g in bf16, the port's in f32).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +25,8 @@ from tests.test_torch_generator import release_memory  # noqa: F401
 B, RES, S = 2, 16, 8
 HP, C = 64, 32
 N = RES * RES * S
+IMG_SHAPE = (RES, RES, S)
+BLOCK = (8, 8, 4)
 
 
 def _smooth_coords(rng, scale=1.05):
@@ -35,6 +40,7 @@ def _smooth_coords(rng, scale=1.05):
     return pts.reshape(B, N, 3).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
 def _case(name, seed):
     rng = np.random.default_rng(seed)
     if name == "random":
@@ -59,9 +65,7 @@ def _jax_auto(planes, coords3, gw, dt):
 
 
 def _jax_op(planes, coords3, gw, dt):
-    e = jsplat.triplane_sample_mean(
-        planes, coords3, (RES, RES, S), dt, (8, 8, 4), 16, 16
-    )
+    e = jsplat.triplane_sample_mean(planes, coords3, IMG_SHAPE, dt, BLOCK, 16, 16)
     return jnp.sum(e * gw), e
 
 
@@ -73,10 +77,16 @@ def _jax(fn, planes, coords, gw, dt):
     return np.asarray(e), np.asarray(gp), np.asarray(gc)
 
 
-def _torch(planes, coords, gw, dt):
+@functools.lru_cache(maxsize=None)
+def _jax_case(fn, name, dt):
+    """_jax of a named case, once per (fn, case, dtype)."""
+    return _jax(fn, *_case(name, seed=SEEDS[name]), dt)
+
+
+def _torch(planes, coords, gw, dt, img_shape=None, block_shape=tsplat.SPLAT_BLOCK):
     p = torch.from_numpy(planes).requires_grad_(True)
     c = torch.from_numpy(coords).requires_grad_(True)
-    e = tsplat.triplane_sample_mean(p, c, dt)
+    e = tsplat.triplane_sample_mean(p, c, dt, img_shape, block_shape)
     torch.sum(e * torch.from_numpy(gw)).backward()
     return e.detach().numpy(), p.grad.numpy(), c.grad.numpy()
 
@@ -85,17 +95,26 @@ def _rel(a, b):
     return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
 
 
+SEEDS = {"smooth": 0, "misfit": 1, "random": 2}
+
+
 @pytest.mark.parametrize("name,dt,tol", [
     ("smooth", None, 5e-5),
     ("smooth", "bfloat16", 2e-2),
     ("misfit", None, 5e-5),
     ("random", None, 5e-5),
+    ("smooth_ragged_blocks", None, 5e-5),
 ])
 def test_triplane_sample_mean_matches_jax(name, dt, tol):
-    planes, coords, gw = _case(name, seed={"smooth": 0, "misfit": 1, "random": 2}[name])
-    et, gpt, gct = _torch(planes, coords, gw, dt)
+    """The port's op gets the JAX op's grid and blocks; the ragged case
+    gets 5x3x3 blocks, which divide none of the grid's axes."""
+    block = BLOCK
+    if name == "smooth_ragged_blocks":
+        name, block = "smooth", (5, 3, 3)
+    planes, coords, gw = _case(name, seed=SEEDS[name])
+    et, gpt, gct = _torch(planes, coords, gw, dt, IMG_SHAPE, block)
     for fn in (_jax_op, _jax_auto):
-        ej, gpj, gcj = _jax(fn, planes, coords, gw, dt)
+        ej, gpj, gcj = _jax_case(fn, name, dt)
         assert _rel(et, ej) < (1e-6 if dt is None else tol), (fn.__name__, _rel(et, ej))
         assert _rel(gpt, gpj) < tol, (fn.__name__, "planes", _rel(gpt, gpj))
         assert _rel(gct, gcj) < tol, (fn.__name__, "coords", _rel(gct, gcj))
@@ -130,7 +149,7 @@ def test_clip_boundary_coordinate_gradient_is_half():
 
 def test_plane_gradient_reference_counts_no_launch():
     """On CPU tensors the wrapper takes the plain version and counts no
-    kernel launch."""
+    kernel launch; it checks the ray grid against the points."""
     rng = np.random.default_rng(3)
     coords = torch.from_numpy(rng.uniform(-1, 1, (1, 64, 3)).astype(np.float32))
     g = torch.from_numpy(rng.standard_normal((1, 64, 8)).astype(np.float32))
@@ -142,20 +161,12 @@ def test_plane_gradient_reference_counts_no_launch():
         tsplat.splat3_backward(coords.double(), g, 16, 16)
     with pytest.raises(ValueError):
         tsplat.splat3_backward(coords[:, :10], g, 16, 16)
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_version_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    rng = np.random.default_rng(5)
-    coords = torch.tensor(rng.uniform(-1.2, 1.2, (2, 4096, 3)), dtype=torch.float32,
-                          device="cuda")
-    g = torch.tensor(rng.standard_normal((2, 4096, 32)), dtype=torch.float32,
-                     device="cuda")
-    before = tsplat.splat3_backward.launches
-    got = tsplat.splat3_backward(coords, g, 64, 64)
-    ref = tsplat.splat3_backward_reference(coords, g, 64, 64)
-    torch.cuda.synchronize()
-    assert tsplat.splat3_backward.launches == before + 1
-    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-5
+    torch.testing.assert_close(
+        tsplat.splat3_backward(coords, g, 16, 16, (2, 4, 8), (3, 3, 3)), out)
+    assert tsplat.splat3_backward.launches == before
+    for img_shape, block in (((2, 4, 7), (1, 1, 1)), ((2, 4, 8), (16, 16, 8)),
+                             ((2, 4, 8), (0, 1, 1)), ((64,), (1, 1, 1))):
+        with pytest.raises(ValueError):
+            tsplat.splat3_backward(coords, g, 16, 16, img_shape, block)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsplat.splat3_backward(coords, g, 16, 16, stats=torch.zeros(3, dtype=torch.int64))
