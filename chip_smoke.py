@@ -25,7 +25,10 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     copies, one transform for both) on the card against the CPU, value
     and gradient w.r.t. the predicted image.
  4. The splat probes (P1, P2; csrc/splat_probes.cu): every P1 stage and P2
-    variant against its plain version at a small shape, then each case of
+    variant against its plain version at a small shape, every P1 stage at
+    three more small shapes at the edges of its launch plan (8 row
+    fragments, WX=48, a partial slab and a partly filled ring stage),
+    then each case of
     python -m nerf_from_image_tpu_torch.profile_splat at its full shape:
     checked against the plain version, then driven as its own path (its
     wrapper's launch count set to 0 just before, read just after) and
@@ -346,16 +349,27 @@ def phase_probes(dev):
     from nerf_from_image_tpu_torch.kernels import splat_probes as sp
 
     small = ps.ProbeInputs(dev, b=1, h=32, w=32, n=256)
-    for case in ([ps.Case("window", s, 64, 16, 8) for s in sp.STAGES]
-                 + [ps.Case("io", v, 64) for v in sp.IO_VARIANTS]):
-        args = small.args(case)
+    checks = [(small, c) for c in ([ps.Case("window", s, 64, 16, 8) for s in sp.STAGES]
+                                   + [ps.Case("io", v, 64) for v in sp.IO_VARIANTS])]
+    # P1's launch plan at its edges (window_launch_plan): 8 row fragments
+    # (WY=128, WX=4: one slab of 4 warps); WX=48; 5 row fragments with a
+    # ring stage that P=192 fills halfway (stages of 128) and a partial
+    # last slab (WX=20: 640 columns in slabs of 256, so 4 of its 8 warps
+    # idle; oy_only's 80 columns leave part of a warp's tiles idle).
+    for inp, P, WY, WX in ((ps.ProbeInputs(dev, b=1, h=136, w=32, n=256), 64, 128, 4),
+                           (ps.ProbeInputs(dev, b=1, h=32, w=64, n=256), 64, 16, 48),
+                           (ps.ProbeInputs(dev, b=2, h=96, w=64, n=768), 192, 80, 20)):
+        checks += [(inp, ps.Case("window", s, P, WY, WX)) for s in sp.STAGES]
+    for inp, case in checks:
+        args = inp.args(case)
         _, rel = rel_err(ps.kernel_fn(case)(*args), ps.plain_fn(case)(*args))
         torch.cuda.synchronize()
         tol = WINDOW_PROBE_TOL if case.probe == "window" else IO_PROBE_TOL
         if not rel < tol:
-            raise AssertionError(f"{case.name} at the small shape: rel err {rel}")
-    log("splat probes at B=1, H=W=32, P=64, WY=16, WX=8: every P1 stage and "
-        "P2 variant agrees with its plain version")
+            raise AssertionError(f"{case.name} at a small shape: rel err {rel}")
+    log("splat probes at small shapes (B=1, H=W=32, P=64, WY=16, WX=8; P1 also "
+        "at WY=128 WX=4, WX=48, and P=192 WY=80 WX=20): every P1 stage and P2 "
+        "variant agrees with its plain version")
 
     inputs = ps.ProbeInputs(dev)
     entries = []

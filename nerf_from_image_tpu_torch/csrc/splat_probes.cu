@@ -11,29 +11,57 @@
 //   P2  scripts/profile_splat_io.py (run, five probe kernels): launch and
 //       per-block overhead, g streaming and coordinate streaming.
 //
-// P1 design. The TPU kept the [H, W*C] plane of one batch element in VMEM
-// and ran the grid in order, so each block's window was a read-add-write of
-// fast memory. Here blocks run unordered and the plane (8 MB per batch
-// element at full width) does not fit in shared memory. One CTA computes
-// one 128-column tile (4 x-positions of 32 channels) of one block's window
-// for all WY rows: it walks the block's P points in chunks of 64, builds
-// the bf16 tents oy [64 x WY] and the bf16 operand Z [64 x 128] in shared
-// memory with the same op order (and the same roundings) as the plain
-// version, and multiplies them on the tensor cores (wmma m16n16k16, bf16 in,
-// f32 accumulate; warp w owns output columns w*16..w*16+15 for every row
-// fragment). The finished window tile is added to device memory with
-// red.global.add.v4.f32: windows of one batch element overlap and their
-// blocks run in no fixed order, so the alternative, a per-b ordering, would
-// serialize the 1024 blocks of a batch element; reductions land in L2,
-// which holds the whole 33.5 MB output. The sums are therefore reordered
-// from run to run (f32, tolerance 1e-4 of max |out|).
+// What bounds P1: the function moves 0.34 GB at P=1024, WY=WX=64 (0.100 ms
+// at 3.35 TB/s, the bytes bound); its dense formulation, which is what the
+// probe prices, is 2*WY*P*WX*C flops per block, 1.10 TFLOP per call, 1.11 ms
+// at 989 TFLOP/s bf16 (dottile adds the 0/1 tile product: 1.67 ms). Then
+// the flush, 4*WY*WX*C bytes of reductions into L2 per block (2.1 GB, 0.85
+// ms by P2 `empty`). The tents are mostly zero (a point touches 2 rows and 2
+// x-positions), but every k-step is computed all the same: skipping the zero
+// chunks would measure how sparse the random inputs are, not the dense
+// formulation.
 //
-// What bounds P1: the dense product, 2*WY*P*WX*C flops per block (1.10
-// TFLOP at P=1024, WY=WX=64: ~1.1 ms at 989 TFLOP/s bf16), then the flush,
-// 4*WY*WX*C bytes of reductions per block (2.1 GB per launch). The function
-// itself moves 0.34 GB (~0.10 ms at 3.35 TB/s). The tents are mostly zero
-// (each point touches 2 rows and 2 x-positions), which is the point of the
-// probe: it prices the dense tensor-core formulation of the splat.
+// P1 design. The TPU kept the [H, W*C] plane of one batch element in VMEM
+// and ran the grid in order; here blocks run unordered and the plane does
+// not fit in shared memory, so windows are added into device memory with
+// reductions that land in L2 (which holds the 33.5 MB output) and the f32
+// sums are reordered from run to run (tolerance 1e-4 of max |out|).
+//   - Unit of work: one CTA per (point block, column slab). A warp holds
+//     all WY rows of its columns in registers (WY/16 row fragments x 64
+//     columns up to WY = 64, x 32 above: at most 128 f32 accumulators a
+//     thread; the row fragments are a template parameter), and the slab is
+//     the CTA's warps side by side. The tents and coordinates are built once
+//     per slab, not once per 128 columns as in P1's earlier kernel (whose 16
+//     CTAs per block each rebuilt the same y tents through shared memory).
+//   - Loads: the block's points stream through a ring of 4 stages of 128
+//     points (iy, ix f32 and g bf16; 9 KB a stage) in dynamic shared
+//     memory, filled by one thread with 1-D bulk copies (cp.async.bulk)
+//     that complete on an mbarrier per stage; the warps release a stage
+//     on a second mbarrier. No __syncthreads in the loop: a warp waits
+//     only for the stage it is about to read, converts its points once
+//     (a lane per point) into its own copy, and reads 4 of them a k-step.
+//     g's rows are 64 bytes, so ldmatrix.trans on the unswizzled stage
+//     meets 4-way bank conflicts (2 instructions a k-step); their cost was
+//     not measured, and no swizzle was tried.
+//   - Tensor cores: mma.sync m16n8k16 (bf16 in, f32 sums), both operands
+//     built in registers, none through shared memory. A = oy^T: each thread
+//     evaluates the y tents of its fragment's (row, point) pairs from the
+//     staged coordinates, in the plain version's op order, rounded once to
+//     bf16. B = Z: g's fragment comes from ldmatrix.trans once per k-step
+//     for all 32 channels and is reused for every x-position of the warp's
+//     columns, times that position's x tent with a bf16x2 multiply (the
+//     product of two bf16 values is exact in f32, so this rounds as
+//     bf16(zx * g)). no_tile: B is the x tents; bf16build: the x tents in
+//     the bf16 op chain; oy_only: B is the y tents; z_only: A is all ones,
+//     so row 0 holds the f32 column sums of Z; dottile: the tile of g is
+//     the product tilemat^T @ g^T on the tensor cores, whose accumulator
+//     layout is the B fragment's.
+//   - Flush straight from the accumulators: lane pairs swap halves with a
+//     shuffle and each lane adds 4 consecutive columns with one
+//     red.global.add.v4.f32. No shared-memory staging.
+//   - The launch plan (warps, columns per slab, ring stages, shared memory)
+//     is computed in kernels/splat_probes.py::window_launch_plan and checked
+//     here.
 //
 // P2 design: one CTA per point block. The readers take a block reduction
 // in registers and shared memory and one atomic per block; they are bound
@@ -46,22 +74,20 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int kC = 32;                // plane channels
-constexpr int kThreads = 256;         // 8 warps
-constexpr int kBK = 64;               // points per chunk
-constexpr int kBN = 128;              // output columns per CTA: 8 warps x 16
-constexpr int kMaxMT = 8;             // WY <= 128: at most 8 row fragments
-constexpr int kLdO = kMaxMT * 16 + 8; // oy chunk [kBK][kLdO] (padded)
-constexpr int kLdZ = kBN + 8;         // Z chunk [kBK][kLdZ] (padded)
-constexpr int kLdG = kC + 8;          // g chunk [kBK][kLdG] (padded)
-constexpr int kXPerTile = kBN / kC;   // 4 x-positions per column tile
+constexpr int kC = 32;          // plane channels
+constexpr int kThreads = 256;   // P2: 8 warps
+constexpr int kMaxWarps = 8;    // P1: warps per CTA, at most
+constexpr int kRingHeader = 128;  // P1: the ring's mbarriers, then the stages
+constexpr int kRingPointBytes = 2 * 4 + kC * 2;  // P1: iy, ix f32 and g bf16
+constexpr int kPointBytes = 16;  // P1: a warp's copy of a point, 4 floats
+
+// P1: column tiles of 8 a warp holds for `mt` row fragments (<= 128
+// accumulators a thread; a multiple of 4, so a warp takes whole x-positions).
+__host__ __device__ constexpr int warp_tiles(int mt) { return mt <= 4 ? 8 : 4; }
 
 // Stage numbers, as in kernels/splat_probes.py::STAGES.
 enum Stage {
@@ -87,244 +113,420 @@ __device__ __forceinline__ void red_add_v4(float* addr, const float* v) {
                : "memory");
 }
 
-// Per point of the chunk: the offsets of its base cell from the window
-// origin (yl0, xl0) and its fractional position in the cell (wy1, wx1),
-// with the op order of the plain version: min(floor(i), W - 2).
-struct ChunkPoints {
-  float yl0[kBK], wy1[kBK], xl0[kBK], wx1[kBK];
+// ---- P1 -------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of `bar` with parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two 8x8 bf16 matrices of each 16x16 tile, transposed: the B fragments
+// (k = 2*tig, 2*tig + 1 and k + 8; n = gid) of 16 channels of g.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 v = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A point's offsets from the window origin and fractional position in its
+// cell, with the plain version's op order: min(floor(i), W - 2).
+struct Axis {
+  float l0, w1;
 };
 
-__device__ __forceinline__ void load_points(ChunkPoints& pts, const float* iy,
-                                            const float* ix, int64_t first,
-                                            int oy0, int ox0, int H, int W) {
-  const int t = threadIdx.x;
-  if (t < kBK) {
-    const float vy = iy[first + t];
-    const float vx = ix[first + t];
-    const float y0f = fminf(floorf(vy), static_cast<float>(H - 2));
-    const float x0f = fminf(floorf(vx), static_cast<float>(W - 2));
-    pts.wy1[t] = __fsub_rn(vy, y0f);
-    pts.wx1[t] = __fsub_rn(vx, x0f);
-    pts.yl0[t] = __fsub_rn(y0f, static_cast<float>(oy0));
-    pts.xl0[t] = __fsub_rn(x0f, static_cast<float>(ox0));
-  }
+__device__ __forceinline__ Axis axis(float v, int limit, int origin) {
+  const float f = fminf(floorf(v), static_cast<float>(limit - 2));
+  return {__fsub_rn(f, static_cast<float>(origin)), __fsub_rn(v, f)};
 }
 
-// The x tent of point k at window column x: f32 arithmetic rounded once to
-// bf16, or (bf16build) every op rounded to bf16 as the bf16 build does.
-template <int STAGE>
-__device__ __forceinline__ bf16 x_tent(const ChunkPoints& pts, int k, int x) {
-  if (STAGE == kBf16Build) {
-    const float xc = __bfloat162float(
-        __float2bfloat16_rn(__fadd_rn(pts.xl0[k], pts.wx1[k])));
-    const float d = __bfloat162float(
-        __float2bfloat16_rn(__fsub_rn(static_cast<float>(x), xc)));
-    const float t = __bfloat162float(__float2bfloat16_rn(__fsub_rn(1.0f, fabsf(d))));
-    return __float2bfloat16_rn(fmaxf(0.0f, t));
-  }
-  return __float2bfloat16_rn(
-      tent(__fsub_rn(__fsub_rn(static_cast<float>(x), pts.xl0[k]), pts.wx1[k])));
+// 1 - |d| for a point at window lane `lane`, d in the plain version's op
+// order; pack_tents clamps it at 0 and rounds it once to bf16.
+__device__ __forceinline__ float rise(Axis a, int lane) {
+  return __fsub_rn(1.0f, fabsf(__fsub_rn(__fsub_rn(static_cast<float>(lane), a.l0), a.w1)));
 }
 
-__device__ __forceinline__ bf16 bf16_mul(bf16 a, bf16 b) {
-  return __float2bfloat16_rn(__fmul_rn(__bfloat162float(a), __bfloat162float(b)));
+// bf16build's x tent before the clamp: every op rounded to bf16, as the
+// bf16 build does.
+__device__ __forceinline__ float bf16_chain_rise(Axis a, int lane) {
+  const float xc = __bfloat162float(__float2bfloat16_rn(__fadd_rn(a.l0, a.w1)));
+  const float d = __bfloat162float(
+      __float2bfloat16_rn(__fsub_rn(static_cast<float>(lane), xc)));
+  return __bfloat162float(__float2bfloat16_rn(__fsub_rn(1.0f, fabsf(d))));
 }
 
-// P1, every stage that multiplies: full, static_store, no_tile, bf16build,
-// dottile (Z = zx * tile(g)) and oy_only (oy^T @ oy). Grid: one CTA per
-// (point block, 128-column tile of the window), column tile fastest.
-template <int STAGE>
-__global__ void __launch_bounds__(kThreads)
+// bf16(max(0, lo)), bf16(max(0, hi)) in one instruction: the clamp after
+// the rounding gives the same bits, as rounding keeps the sign.
+__device__ __forceinline__ uint32_t pack_tents(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// P1, every stage. MT row fragments of 16 (WY = 16 * MT; z_only: MT = 1)
+// and NT column tiles of 8 per warp, so that a thread holds at most 128
+// accumulators. Grid: one CTA per (point block, column slab), slab
+// fastest; blockDim.x = 32 * warps. Nothing in the k-step is predicated on
+// run-time values: a predicated mma.sync needs a warp-level convergence
+// barrier per instruction, which serialises the products (`full` at
+// P=1024, WY=WX=64 on an H100: 7.7 ms with such guards, 4.8 without).
+// Tiles of a warp past the window's last column are computed all the same
+// and left out of the flush.
+template <int STAGE, int MT>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
 window_product_kernel(const int32_t* __restrict__ oy0s,
                       const int32_t* __restrict__ ox0s,
                       const float* __restrict__ iy,  // [B*nblocks, P]
                       const float* __restrict__ ix,  // [B*nblocks, P]
                       const bf16* __restrict__ g,    // [B*nblocks, P, kC]
                       float* __restrict__ out,       // [B, H, W*kC]
-                      int nblocks, int P, int H, int W, int WY, int WX) {
-  __shared__ __align__(128) bf16 s_oy[kBK * kLdO];
-  __shared__ __align__(128) bf16 s_z[kBK * kLdZ];
-  __shared__ __align__(128) bf16 s_g[kBK * kLdG];
-  __shared__ __align__(128) bf16 s_ident[16 * 16];
-  __shared__ bf16 s_zx[kBK][kXPerTile];
-  __shared__ ChunkPoints pts;
+                      int nblocks, int P, int H, int W, int WY, int WX,
+                      int nslabs, int chunk, int ring) {
+  constexpr int NT = warp_tiles(MT);
+  constexpr int kWarpCols = NT * 8;
+  constexpr int NX = kWarpCols / kC;  // x-positions of a warp
+  constexpr bool kUsesG = STAGE != kOyOnly && STAGE != kNoTile;
+  constexpr bool kUsesX = STAGE != kOyOnly;
+  constexpr bool kUsesY = STAGE != kZOnly;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + ring;
+  const int stage_bytes = chunk * kRingPointBytes;
 
   const int ncols = (STAGE == kOyOnly) ? WY : WX * kC;
-  const int ntiles = (ncols + kBN - 1) / kBN;
-  const int blk = blockIdx.x / ntiles;
-  const int n0 = (blockIdx.x % ntiles) * kBN;
+  const int blk = blockIdx.x / nslabs;
+  const int slab = blockIdx.x % nslabs;
   const int b = blk / nblocks;
   const int oy0 = oy0s[blk];
   const int ox0 = ox0s[blk];
   const bool at_origin = (STAGE == kStaticStore || STAGE == kOyOnly);
-  const int row0 = at_origin ? 0 : oy0;
-  const int col0 = at_origin ? 0 : ox0 * kC;
+  const int row0 = (STAGE == kZOnly || at_origin) ? 0 : oy0;
+  const int col0 = at_origin || STAGE == kZOnly ? 0 : ox0 * kC;
+  const int rows = (STAGE == kZOnly) ? 1 : WY;
   const int64_t WC = static_cast<int64_t>(W) * kC;
   // A window outside the plane would address outside `out`: drop it.
-  if (row0 < 0 || row0 + WY > H || col0 < 0 || col0 + ncols > WC) return;
+  if (row0 < 0 || row0 + rows > H || col0 < 0 || col0 + ncols > WC) return;
 
-  const int t = threadIdx.x;
-  const int warp = t >> 5;
-  const int lane = t & 31;
-  const int mt = WY / 16;
-  const bool warp_has_cols = n0 + warp * 16 < ncols;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int nwarps = blockDim.x >> 5;
+  // The warp's first column in the window. A warp wholly past the last
+  // column (a partial slab) only keeps the ring going.
+  const int wcol0 = (slab * nwarps + warp) * kWarpCols;
+  const bool active = wcol0 < ncols;
 
-  if (STAGE == kDotTile) {
-    for (int e = t; e < 256; e += kThreads)
-      s_ident[e] = __float2bfloat16_rn((e / 16 == e % 16) ? 1.0f : 0.0f);
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kMaxMT];
-#pragma unroll
-  for (int i = 0; i < kMaxMT; ++i) wmma::fill_fragment(acc[i], 0.0f);
-
+  const int nchunks = (P + chunk - 1) / chunk;
   const int64_t blk_first = static_cast<int64_t>(blk) * P;
-  for (int p0 = 0; p0 < P; p0 += kBK) {
-    load_points(pts, iy, ix, blk_first + p0, oy0, ox0, H, W);
-    if (STAGE != kOyOnly && STAGE != kNoTile) {
-      // g chunk [kBK, kC] bf16: 4 KB, 16 bytes per thread.
-      const uint4* src = reinterpret_cast<const uint4*>(g + (blk_first + p0) * kC);
-      const int k = t >> 2, q = t & 3;
-      *reinterpret_cast<uint4*>(&s_g[k * kLdG + q * 8]) = __ldg(src + t);
-    }
-    __syncthreads();
+  auto stage_ptr = [&](int s) { return smem + kRingHeader + s * stage_bytes; };
+  // This warp's copy of the chunk's points as (yl0, wy1, xl0, wx1).
+  float4* pts = reinterpret_cast<float4*>(smem + kRingHeader + ring * stage_bytes) +
+                warp * chunk;
+  auto fill = [&](int c) {  // one thread: chunk c into its ring stage
+    const int s = c % ring, n = min(chunk, P - c * chunk);
+    const int64_t first = blk_first + static_cast<int64_t>(c) * chunk;
+    unsigned char* dst = stage_ptr(s);
+    const uint32_t bytes = n * 4 * (kUsesX ? 2 : 1) + (kUsesG ? n * kC * 2 : 0);
+    mbar_expect_tx(&full[s], bytes);
+    bulk_load(dst, iy + first, n * 4, &full[s]);
+    if (kUsesX) bulk_load(dst + chunk * 4, ix + first, n * 4, &full[s]);
+    if (kUsesG) bulk_load(dst + chunk * 8, g + first * kC, n * kC * 2, &full[s]);
+  };
 
-    if (STAGE != kOyOnly) {
-      // x tents of the tile's 4 x-positions: one per thread.
-      const int k = t / kXPerTile, xi = t % kXPerTile;
-      s_zx[k][xi] = x_tent<STAGE>(pts, k, n0 / kC + xi);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ring; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], nwarps);
     }
-    __syncthreads();
-
-    if (STAGE == kDotTile) {
-      // tile(g) as the product g[kBK x kC] @ tilemat[kC x kBN], tilemat[c, n]
-      // = (n % kC == c): its 16x16 blocks are the identity where the column
-      // block and the k-step agree mod 2, else zero. The f32 result is g
-      // exactly; each warp rounds its 4 fragments to bf16 and multiplies by
-      // the tents, staging through the (not yet built) oy buffer.
-      float* stage = reinterpret_cast<float*>(s_oy) + warp * 256;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int f = warp * 4 + j, rt = f / 8, ct = f % 8;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> gt;
-        wmma::fill_fragment(gt, 0.0f);
-#pragma unroll
-        for (int ks = 0; ks < kC / 16; ++ks) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-          wmma::load_matrix_sync(a, s_g + rt * 16 * kLdG + ks * 16, kLdG);
-          if (ct % 2 == ks) {
-            wmma::load_matrix_sync(bm, s_ident, 16);
-          } else {
-            wmma::fill_fragment(bm, __float2bfloat16_rn(0.0f));
-          }
-          wmma::mma_sync(gt, a, bm, gt);
-        }
-        wmma::store_matrix_sync(stage, gt, 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int k = rt * 16 + e / 16, n = ct * 16 + e % 16;
-          s_z[k * kLdZ + n] =
-              bf16_mul(s_zx[k][n / kC], __float2bfloat16_rn(stage[e]));
-        }
-        __syncwarp();
-      }
-    } else if (STAGE != kOyOnly) {
-      for (int e = t; e < kBK * kBN; e += kThreads) {
-        const int k = e / kBN, n = e % kBN;
-        const bf16 zx = s_zx[k][n / kC];
-        s_z[k * kLdZ + n] =
-            (STAGE == kNoTile) ? zx : bf16_mul(zx, s_g[k * kLdG + n % kC]);
-      }
-    }
-    __syncthreads();
-
-    // y tents oy[k, m], stored [k][m]: column-major A = oy^T [WY x kBK].
-    for (int e = t; e < kBK * WY; e += kThreads) {
-      const int k = e / WY, m = e % WY;
-      s_oy[k * kLdO + m] = __float2bfloat16_rn(tent(__fsub_rn(
-          __fsub_rn(static_cast<float>(m), pts.yl0[k]), pts.wy1[k])));
-    }
-    __syncthreads();
-
-    if (warp_has_cols) {
-#pragma unroll
-      for (int ks = 0; ks < kBK / 16; ++ks) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-        if (STAGE == kOyOnly) {
-          wmma::load_matrix_sync(bm, s_oy + ks * 16 * kLdO + n0 + warp * 16, kLdO);
-        } else {
-          wmma::load_matrix_sync(bm, s_z + ks * 16 * kLdZ + warp * 16, kLdZ);
-        }
-#pragma unroll
-        for (int i = 0; i < kMaxMT; ++i) {
-          if (i < mt) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-            wmma::load_matrix_sync(a, s_oy + ks * 16 * kLdO + i * 16, kLdO);
-            wmma::mma_sync(acc[i], a, bm, acc[i]);
-          }
-        }
-      }
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < min(ring, nchunks); ++c) fill(c);
   }
 
-  if (!warp_has_cols) return;
-  // Flush: each fragment goes through a per-warp 16x16 f32 staging tile
-  // (the Z buffer is free now), then two v4 reductions per lane.
-  float* stage = reinterpret_cast<float*>(s_z) + warp * 256;
-  const int r = lane >> 1, half = (lane & 1) * 8;
-  float* plane = out + static_cast<int64_t>(b) * H * WC;
+  float acc[MT][NT][4];
 #pragma unroll
-  for (int i = 0; i < kMaxMT; ++i) {
-    if (i < mt) {
-      wmma::store_matrix_sync(stage, acc[i], 16, wmma::mem_row_major);
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  // z_only's A: all ones (bf16 1.0 twice).
+  const uint32_t kOnes = 0x3F803F80u;
+  // dottile's A: tilemat^T's 16 x 16 block where column and channel phase
+  // agree (the identity), else zero; its nonzero registers are 0 and 3.
+  const uint32_t ident_lo = (gid == 2 * tig) ? 0x3F80u : 0u;
+  const uint32_t ident_hi = (gid == 2 * tig + 1) ? 0x3F80u : 0u;
+  const uint32_t ident = ident_lo | (ident_hi << 16);
+
+  for (int c = 0; c < nchunks; ++c) {
+    const int s = c % ring;
+    const uint32_t parity = (c / ring) & 1;
+    mbar_wait(&full[s], parity);
+    const float* s_iy = reinterpret_cast<const float*>(stage_ptr(s));
+    const float* s_ix = s_iy + chunk;
+    const bf16* s_g = reinterpret_cast<const bf16*>(stage_ptr(s) + chunk * 8);
+    const int n = min(chunk, P - c * chunk);
+
+    if (active) {
+      // The chunk's points, once per warp (a lane per point), in the plain
+      // version's op order; every lane of the k-steps reads 4 of them.
+      for (int k = lane; k < n; k += 32) {
+        const Axis y = kUsesY ? axis(s_iy[k], H, oy0) : Axis{0.0f, 0.0f};
+        const Axis x = kUsesX ? axis(s_ix[k], W, ox0) : Axis{0.0f, 0.0f};
+        pts[k] = make_float4(y.l0, y.w1, x.l0, x.w1);
+      }
       __syncwarp();
-      float* dst = plane + static_cast<int64_t>(row0 + i * 16 + r) * WC +
-                   col0 + n0 + warp * 16 + half;
-      red_add_v4(dst, stage + r * 16 + half);
-      red_add_v4(dst + 4, stage + r * 16 + half + 4);
-      __syncwarp();
+
+#pragma unroll 1
+      for (int k0 = 0; k0 < n; k0 += 16) {
+        // This thread's 4 points of the k-step: A columns and B rows
+        // 2*tig, 2*tig + 1, 2*tig + 8, 2*tig + 9.
+        Axis ya[4], xa[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 v = pts[k0 + 2 * tig + (q & 1) + (q >> 1) * 8];
+          ya[q] = {v.x, v.y};
+          xa[q] = {v.z, v.w};
+        }
+        // A fragments: rows gid and gid + 8 of each row fragment.
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          if (STAGE == kZOnly) {
+            a[i][0] = a[i][1] = a[i][2] = a[i][3] = kOnes;
+          } else {
+            const int r = i * 16 + gid;
+            a[i][0] = pack_tents(rise(ya[0], r), rise(ya[1], r));
+            a[i][1] = pack_tents(rise(ya[0], r + 8), rise(ya[1], r + 8));
+            a[i][2] = pack_tents(rise(ya[2], r), rise(ya[3], r));
+            a[i][3] = pack_tents(rise(ya[2], r + 8), rise(ya[3], r + 8));
+          }
+        }
+        // x tents of the warp's x-positions, as bf16 pairs (points 0/1, 2/3).
+        uint32_t zx[NX][2];
+        if (kUsesX) {
+#pragma unroll
+          for (int xi = 0; xi < NX; ++xi) {
+            const int x = wcol0 / kC + xi;
+            if (STAGE == kBf16Build) {
+              zx[xi][0] = pack_tents(bf16_chain_rise(xa[0], x), bf16_chain_rise(xa[1], x));
+              zx[xi][1] = pack_tents(bf16_chain_rise(xa[2], x), bf16_chain_rise(xa[3], x));
+            } else {
+              zx[xi][0] = pack_tents(rise(xa[0], x), rise(xa[1], x));
+              zx[xi][1] = pack_tents(rise(xa[2], x), rise(xa[3], x));
+            }
+          }
+        }
+        // g's B fragments for the 4 groups of 8 channels: [group][2].
+        uint32_t gf[4][2];
+        if (STAGE != kOyOnly && STAGE != kNoTile && STAGE != kDotTile) {
+          const int mat = lane >> 3;
+          const bf16* row = s_g + (k0 + (lane & 7) + (mat & 1) * 8) * kC + (mat >> 1) * 8;
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, row);
+          gf[0][0] = r[0], gf[0][1] = r[1], gf[1][0] = r[2], gf[1][1] = r[3];
+          ldmatrix_x4_trans(r, row + 16);
+          gf[2][0] = r[0], gf[2][1] = r[1], gf[3][0] = r[2], gf[3][1] = r[3];
+        }
+        // dottile: g^T's B fragments, [point half][channel half][2]: points
+        // k0 + 8*h + gid, channels 16*c + 2*tig (+1) and + 8 (+9).
+        uint32_t gt[2][2][2];
+        if (STAGE == kDotTile) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+              const bf16* p = s_g + (k0 + 8 * h + gid) * kC + 16 * cc + 2 * tig;
+              gt[h][cc][0] = *reinterpret_cast<const uint32_t*>(p);
+              gt[h][cc][1] = *reinterpret_cast<const uint32_t*>(p + 8);
+            }
+        }
+
+        // B fragments of every tile first, then the products.
+        uint32_t bf[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          // kWarpCols is a multiple of kC: the tile's x-position and channel
+          // group are known at compile time.
+          const int col = wcol0 + j * 8;  // the tile's first window column
+          const int xi = j * 8 / kC;
+          const int group = j % (kC / 8);
+          if (STAGE == kOyOnly) {
+            bf[j][0] = pack_tents(rise(ya[0], col + gid), rise(ya[1], col + gid));
+            bf[j][1] = pack_tents(rise(ya[2], col + gid), rise(ya[3], col + gid));
+          } else if (STAGE == kNoTile) {
+            bf[j][0] = zx[xi][0];
+            bf[j][1] = zx[xi][1];
+          } else if (STAGE == kDotTile) {
+            // tile(g) for columns col .. col + 15 (j even) as the product
+            // tilemat^T[16 x 32] @ g^T[32 x 8] per 8 points; the tile j + 1
+            // takes the accumulators' rows gid + 8.
+            if (j % 2 == 0) {
+              float t[2][4];
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                t[h][0] = t[h][1] = t[h][2] = t[h][3] = 0.0f;
+#pragma unroll
+                for (int cc = 0; cc < 2; ++cc) {
+                  const bool on = (j * 8) % kC == 16 * cc;
+                  const uint32_t ta[4] = {on ? ident : 0u, 0u, 0u, on ? ident : 0u};
+                  mma_bf16(t[h], ta, gt[h][cc][0], gt[h][cc][1]);
+                }
+              }
+              gf[0][0] = pack_bf16(t[0][0], t[0][1]);
+              gf[0][1] = pack_bf16(t[1][0], t[1][1]);
+              gf[1][0] = pack_bf16(t[0][2], t[0][3]);
+              gf[1][1] = pack_bf16(t[1][2], t[1][3]);
+            }
+            bf[j][0] = mul_bf16x2(gf[j % 2][0], zx[xi][0]);
+            bf[j][1] = mul_bf16x2(gf[j % 2][1], zx[xi][1]);
+          } else {
+            bf[j][0] = mul_bf16x2(gf[group][0], zx[xi][0]);
+            bf[j][1] = mul_bf16x2(gf[group][1], zx[xi][1]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            mma_bf16(acc[i][j], a[i], bf[j][0], bf[j][1]);
+          }
+        }
+      }
+    }
+
+    // Release the stage; thread 0 refills it once every warp has.
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (threadIdx.x == 0 && c + ring < nchunks) {
+      mbar_wait(&empty[s], parity);
+      fill(c + ring);
+    }
+    __syncwarp();
+  }
+
+  // Flush: lane pairs swap halves, so that each lane holds 4 consecutive
+  // columns of one row (even tig: row gid; odd tig: row gid + 8).
+  float* plane = out + static_cast<int64_t>(b) * H * WC;
+  const bool odd = tig & 1;
+  const int frow = gid + (odd ? 8 : 0);
+  const int fcol = 2 * (tig & ~1);
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = wcol0 + j * 8;
+      if (col >= ncols) continue;
+      const float* d = acc[i][j];
+      const float s0 = __shfl_xor_sync(0xffffffffu, odd ? d[0] : d[2], 1);
+      const float s1 = __shfl_xor_sync(0xffffffffu, odd ? d[1] : d[3], 1);
+      const float v[4] = {odd ? s0 : d[0], odd ? s1 : d[1], odd ? d[2] : s0,
+                          odd ? d[3] : s1};
+      if (STAGE == kZOnly && frow != 0) continue;
+      red_add_v4(plane + static_cast<int64_t>(row0 + i * 16 + frow) * WC + col0 +
+                     col + fcol,
+                 v);
     }
   }
 }
 
-// P1 z_only: the column sums of Z over the block's points, out[b, 0, n] +=
-// sum_p Z[p, n] in f32. One thread per column, 128 columns per CTA.
-__global__ void __launch_bounds__(kBN)
-z_only_kernel(const int32_t* __restrict__ ox0s, const float* __restrict__ iy,
-              const float* __restrict__ ix, const bf16* __restrict__ g,
-              float* __restrict__ out, int nblocks, int P, int H, int W,
-              int WX) {
-  __shared__ __align__(16) bf16 s_g[kBK * kLdG];
-  __shared__ bf16 s_zx[kBK][kXPerTile];
-  __shared__ ChunkPoints pts;
+template <int STAGE, int MT>
+int launch_product(int blocks, int warps, int nslabs, int chunk, int ring,
+                   int smem_bytes, cudaStream_t s, const int32_t* oy0,
+                   const int32_t* ox0, const float* iy, const float* ix,
+                   const bf16* g, float* out, int nblocks, int P, int H, int W,
+                   int WY, int WX) {
+  auto kernel = window_product_kernel<STAGE, MT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<blocks * nslabs, warps * 32, smem_bytes, s>>>(
+      oy0, ox0, iy, ix, g, out, nblocks, P, H, W, WY, WX, nslabs, chunk, ring);
+  return static_cast<int>(cudaGetLastError());
+}
 
-  const int ntiles = WX * kC / kBN;
-  const int blk = blockIdx.x / ntiles;
-  const int n0 = (blockIdx.x % ntiles) * kBN;
-  const int b = blk / nblocks;
-  const int t = threadIdx.x;
-  const int64_t blk_first = static_cast<int64_t>(blk) * P;
-  float acc = 0.0f;
-  for (int p0 = 0; p0 < P; p0 += kBK) {
-    load_points(pts, iy, ix, blk_first + p0, 0, ox0s[blk], H, W);
-    const uint4* src = reinterpret_cast<const uint4*>(g + (blk_first + p0) * kC);
-    for (int e = t; e < kBK * kC / 8; e += kBN) {
-      *reinterpret_cast<uint4*>(&s_g[(e >> 2) * kLdG + (e & 3) * 8]) = __ldg(src + e);
-    }
-    __syncthreads();
-    for (int e = t; e < kBK * kXPerTile; e += kBN) {
-      s_zx[e / kXPerTile][e % kXPerTile] =
-          x_tent<kZOnly>(pts, e / kXPerTile, n0 / kC + e % kXPerTile);
-    }
-    __syncthreads();
-    for (int k = 0; k < kBK; ++k) {
-      acc += __bfloat162float(bf16_mul(s_zx[k][t / kC], s_g[k * kLdG + t % kC]));
-    }
-    __syncthreads();
+// The stage's kernel for `mt` row fragments (z_only takes one).
+template <int STAGE>
+int launch_stage(int mt, int blocks, int warps, int nslabs, int chunk, int ring,
+                 int smem_bytes, cudaStream_t s, const int32_t* oy0,
+                 const int32_t* ox0, const float* iy, const float* ix,
+                 const bf16* g, float* out, int nblocks, int P, int H, int W,
+                 int WY, int WX) {
+#define P1_MT(M)                                                                \
+  case M:                                                                       \
+    return launch_product<STAGE, (STAGE == kZOnly ? 1 : M)>(                    \
+        blocks, warps, nslabs, chunk, ring, smem_bytes, s, oy0, ox0, iy, ix, g, \
+        out, nblocks, P, H, W, WY, WX)
+  switch (mt) {
+    P1_MT(1); P1_MT(2); P1_MT(3); P1_MT(4);
+    P1_MT(5); P1_MT(6); P1_MT(7); P1_MT(8);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  atomicAdd(out + static_cast<int64_t>(b) * H * W * kC + n0 + t, acc);
+#undef P1_MT
 }
 
 // ---- P2 -------------------------------------------------------------------
@@ -438,59 +640,50 @@ io_transpose_2p_kernel(const float* __restrict__ ixy, float* __restrict__ out,
     atomicAdd(out + static_cast<int64_t>(blockIdx.x / nblocks) * H * WC, s);
 }
 
-template <int STAGE>
-void launch_product(int blocks, int ntiles, cudaStream_t s, const int32_t* oy0,
-                    const int32_t* ox0, const float* iy, const float* ix,
-                    const bf16* g, float* out, int nblocks, int P, int H, int W,
-                    int WY, int WX) {
-  window_product_kernel<STAGE><<<blocks * ntiles, kThreads, 0, s>>>(
-      oy0, ox0, iy, ix, g, out, nblocks, P, H, W, WY, WX);
-}
-
 }  // namespace
 
 // P1. Shapes: oy0, ox0 [B*nblocks] i32; iy, ix [B*nblocks, P] f32; g
-// [B*nblocks, P, 32] bf16; out [B, H, W*32] f32, zeroed by the caller. The
-// wrapper (kernels/splat_probes.py) checks shapes and types; this returns
-// cudaErrorInvalidValue for a shape the kernels do not take.
+// [B*nblocks, P, 32] bf16, each 16-byte aligned; out [B, H, W*32] f32,
+// zeroed by the caller. The launch plan (mt, warps, slab_cols, chunk,
+// ring, smem_bytes) comes from kernels/splat_probes.py::window_launch_plan;
+// the wrapper checks shapes and types, and this returns
+// cudaErrorInvalidValue for a shape or plan the kernels do not take.
 extern "C" int splat_window_probe(const int32_t* oy0, const int32_t* ox0,
                                   const float* iy, const float* ix,
                                   const void* g, float* out, int B, int nblocks,
                                   int P, int H, int W, int WY, int WX, int stage,
-                                  void* stream) {
+                                  int mt, int warps, int slab_cols, int chunk,
+                                  int ring, int smem_bytes, void* stream) {
   const int blocks = B * nblocks;
-  if (blocks <= 0 || P % kBK != 0 || WY % 16 != 0 || WY > kMaxMT * 16 ||
-      (WX * kC) % kBN != 0 || H < 2 || W < 2)
+  const int ncols = (stage == kOyOnly) ? WY : WX * kC;
+  if (blocks <= 0 || P % 64 != 0 || WY % 16 != 0 || WY < 16 || WY > 128 ||
+      (WX * kC) % 128 != 0 || WX <= 0 || H < 2 || W < 2)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (mt != (stage == kZOnly ? 1 : WY / 16) || warps < 1 || warps > kMaxWarps ||
+      slab_cols != warps * warp_tiles(mt) * 8 || chunk % 64 != 0 || chunk < 64 ||
+      chunk > 256 || ring < 2 || ring * 16 > kRingHeader ||
+      smem_bytes != kRingHeader + ring * chunk * kRingPointBytes +
+                        warps * chunk * kPointBytes ||
+      smem_bytes > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nslabs = (ncols + slab_cols - 1) / slab_cols;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* gb = static_cast<const bf16*>(g);
-  const int ntiles = WX * kC / kBN;
+#define P1_LAUNCH(STAGE)                                                       \
+  return launch_stage<STAGE>(mt, blocks, warps, nslabs, chunk, ring, smem_bytes, \
+                             s, oy0, ox0, iy, ix, gb, out, nblocks, P, H, W,   \
+                             WY, WX)
   switch (stage) {
-    case kFull:
-      launch_product<kFull>(blocks, ntiles, s, oy0, ox0, iy, ix, gb, out, nblocks, P, H, W, WY, WX);
-      break;
-    case kStaticStore:
-      launch_product<kStaticStore>(blocks, ntiles, s, oy0, ox0, iy, ix, gb, out, nblocks, P, H, W, WY, WX);
-      break;
-    case kNoTile:
-      launch_product<kNoTile>(blocks, ntiles, s, oy0, ox0, iy, ix, gb, out, nblocks, P, H, W, WY, WX);
-      break;
-    case kBf16Build:
-      launch_product<kBf16Build>(blocks, ntiles, s, oy0, ox0, iy, ix, gb, out, nblocks, P, H, W, WY, WX);
-      break;
-    case kDotTile:
-      launch_product<kDotTile>(blocks, ntiles, s, oy0, ox0, iy, ix, gb, out, nblocks, P, H, W, WY, WX);
-      break;
-    case kOyOnly:
-      launch_product<kOyOnly>(blocks, 1, s, oy0, ox0, iy, ix, gb, out, nblocks, P, H, W, WY, WX);
-      break;
-    case kZOnly:
-      z_only_kernel<<<blocks * ntiles, kBN, 0, s>>>(ox0, iy, ix, gb, out, nblocks, P, H, W, WX);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kFull: P1_LAUNCH(kFull);
+    case kStaticStore: P1_LAUNCH(kStaticStore);
+    case kNoTile: P1_LAUNCH(kNoTile);
+    case kZOnly: P1_LAUNCH(kZOnly);
+    case kOyOnly: P1_LAUNCH(kOyOnly);
+    case kBf16Build: P1_LAUNCH(kBf16Build);
+    case kDotTile: P1_LAUNCH(kDotTile);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+#undef P1_LAUNCH
 }
 
 // P2. variant: 0 empty, 1 read_g, 2 read_ixy_P1, 3 read_ixy_2P,

@@ -22,6 +22,7 @@ by one bf16 ulp and would hide the kernel's own error.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -33,13 +34,22 @@ STAGES = ("full", "static_store", "no_tile", "z_only", "oy_only", "bf16build",
 IO_VARIANTS = ("empty", "read_g", "read_ixy_P1", "read_ixy_2P", "transpose_2P")
 # `empty` fills this corner of each batch element's output.
 EMPTY_ROWS, EMPTY_COLS = 64, 2048
-_P_MULTIPLE = 64  # points per kernel chunk
+_P_MULTIPLE = 64  # the kernel's k-steps and ring stages take whole 64s
+# P1's kernel: at most this many f32 accumulators per thread (a warp holds
+# WY rows x its columns), warps per CTA, points per ring stage, ring
+# stages, and the shared memory a CTA may use on Hopper.
+ACC_BUDGET = 128
+MAX_WARPS = 8
+RING_CHUNK = 128
+RING_STAGES = 4
+RING_HEADER = 128  # bytes: the ring's mbarriers
+MAX_SMEM = 232448
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("splat_probes")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.splat_window_probe.argtypes = [p, p, p, p, p, p] + [i] * 8 + [p]
+    lib.splat_window_probe.argtypes = [p, p, p, p, p, p] + [i] * 14 + [p]
     lib.splat_window_probe.restype = i
     lib.splat_io_probe.argtypes = [i, p, p, p, p, p] + [i] * 5 + [p]
     lib.splat_io_probe.restype = i
@@ -82,6 +92,39 @@ def _check_window_args(oy0, ox0, iy, ix, g, H, W, WY, WX, stage):
             f"(a multiple of 16, <= H) and WX % 4 == 0 (<= W); got P={P}, "
             f"WY={WY}, WX={WX}, H={H}, W={W}")
     return B, nb, P
+
+
+class WindowPlan(NamedTuple):
+    """How P1's kernel covers the windows: one CTA per (point block, slab)."""
+
+    mt: int           # row fragments of 16 a warp holds: WY / 16 (z_only: 1)
+    warp_cols: int    # window columns per warp
+    warps: int        # warps per CTA
+    slab_cols: int    # window columns per CTA: warps * warp_cols
+    slabs: int        # CTAs per point block
+    chunk: int        # points per ring stage
+    ring: int         # ring stages
+    smem_bytes: int   # dynamic shared memory per CTA
+    accumulators: int  # f32 accumulators per thread
+
+
+def window_launch_plan(stage, P, WY, WX) -> WindowPlan:
+    """P1's launch plan for a window of WY rows and WX x-positions. A warp
+    holds all WY rows of its columns (z_only: one row fragment, its column
+    sums): 64 columns up to WY = 64, 32 above, so that no thread holds more
+    than ACC_BUDGET accumulators; the CTA takes up to MAX_WARPS warps side
+    by side. The block's points stream through RING_STAGES stages of up to
+    RING_CHUNK points (iy, ix f32 and g bf16 each), and each warp keeps its
+    own copy of a stage's points as 4 floats each."""
+    ncols = WY if stage == "oy_only" else WX * C
+    mt = 1 if stage == "z_only" else WY // 16
+    warp_cols = (8 if mt <= 4 else 4) * 8
+    warps = min(MAX_WARPS, -(-ncols // warp_cols))
+    slab_cols = warps * warp_cols
+    chunk = min(RING_CHUNK, P)
+    smem = RING_HEADER + RING_STAGES * chunk * (2 * 4 + C * 2) + warps * chunk * 16
+    return WindowPlan(mt, warp_cols, warps, slab_cols, -(-ncols // slab_cols),
+                      chunk, RING_STAGES, smem, mt * (warp_cols // 8) * 4)
 
 
 def _tents(oy0, ox0, iy, ix, H, W, WY, WX, stage):
@@ -176,16 +219,22 @@ def splat_window_probe(oy0, ox0, iy, ix, g, H, W, WY, WX, stage):
     tile as a product with a 0/1 matrix for dottile).
 
     On a CUDA tensor this launches the kernel of csrc/splat_probes.cu on the
-    current stream and counts it in `splat_window_probe.launches`; on a CPU
-    tensor it runs splat_window_probe_reference.
+    current stream with window_launch_plan's plan and counts it in
+    `splat_window_probe.launches`; on a CPU tensor it runs
+    splat_window_probe_reference.
     """
     B, nb, P = _check_window_args(oy0, ox0, iy, ix, g, H, W, WY, WX, stage)
     if iy.device.type == "cpu":
         return splat_window_probe_reference(oy0, ox0, iy, ix, g, H, W, WY, WX, stage)
+    for name, t in (("iy", iy), ("ix", ix), ("g", g)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the bulk copies")
+    plan = window_launch_plan(stage, P, WY, WX)
     out = torch.zeros((B, H, W * C), dtype=torch.float32, device=iy.device)
     rc = _lib().splat_window_probe(
         oy0.data_ptr(), ox0.data_ptr(), iy.data_ptr(), ix.data_ptr(), g.data_ptr(),
-        out.data_ptr(), B, nb, P, H, W, WY, WX, STAGES.index(stage),
+        out.data_ptr(), B, nb, P, H, W, WY, WX, STAGES.index(stage), plan.mt,
+        plan.warps, plan.slab_cols, plan.chunk, plan.ring, plan.smem_bytes,
         torch.cuda.current_stream(iy.device).cuda_stream,
     )
     if rc != 0:

@@ -25,6 +25,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from nerf_from_image_tpu_torch import profile_splat as ps
 from nerf_from_image_tpu_torch.kernels import splat_probes as tp
 from tests.test_torch_generator import release_memory  # noqa: F401
 
@@ -261,3 +262,28 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_check_arguments():
     with pytest.raises(ValueError):
         tp.splat_io_probe("read_g", args[2], args[3], ixy[:, :, :1], args[4], H, W)
 
+
+# Every profile_splat P1 case, chip_smoke.py's small shape and its extra
+# small-shape checks (WY=128, WX=48, a partly filled ring stage with a
+# partial last slab).
+_PLAN_SHAPES = sorted(
+    {(c.variant, c.P, c.WY, c.WX) for c in ps.CASES if c.probe == "window"}
+    | {(s, 64, 16, 8) for s in tp.STAGES}
+    | {(s, P_, WY_, WX_) for s in tp.STAGES
+       for P_, WY_, WX_ in ((64, 128, 4), (64, 16, 48), (192, 80, 20))})
+
+
+@pytest.mark.parametrize("stage,P,WY,WX", _PLAN_SHAPES)
+def test_window_launch_plan_covers_each_column_once(stage, P, WY, WX):
+    plan = tp.window_launch_plan(stage, P, WY, WX)
+    ncols = WY if stage == "oy_only" else WX * C
+    covered = np.zeros(ncols, np.int64)
+    for slab in range(plan.slabs):
+        for warp in range(plan.warps):
+            for j in range(plan.warp_cols // 8):
+                col = (slab * plan.warps + warp) * plan.warp_cols + j * 8
+                if col < ncols:  # the kernel leaves tiles past the window idle
+                    covered[col:col + 8] += 1
+    assert np.all(covered == 1)
+    assert plan.smem_bytes <= tp.MAX_SMEM == 227 * 1024
+    assert plan.accumulators <= tp.ACC_BUDGET
