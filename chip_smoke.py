@@ -19,30 +19,39 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     that the blocks do not divide); the coarse points also in two smaller
     block shapes. Prints each case's misfit blocks and the bytes it
     reduced into L2, and times each; times the plain version and one
-    `index_put_(accumulate=True)` call on the coarse points.
+    `index_put_(accumulate=True)` call on the coarse points, and the
+    coarse points' kernel also one call at a time at cold L2
+    (profile_splat.device_ms).
  3. A small render on the card against the same render on the CPU, values
     and (ws, pose) gradients; a small 'vgg' loss (LPIPS on crop-augmented
     copies, one transform for both) on the card against the CPU, value
     and gradient w.r.t. the predicted image.
- 4. The splat probes (P1, P2; csrc/splat_probes.cu): every P1 stage and P2
-    variant against its plain version at a small shape, every P1 stage at
-    three more small shapes at the edges of its launch plan (8 row
-    fragments, WX=48, a partial slab and a partly filled ring stage),
-    then each case of
-    python -m nerf_from_image_tpu_torch.profile_splat at its full shape:
-    checked against the plain version, then driven as its own path (its
-    wrapper's launch count set to 0 just before, read just after) and
-    timed beside its plain version, its bound, its dense formulation's
-    operation time (P1) and, where one exists, one PyTorch call computing
-    the same work (profile_splat.library_call).
- 5. The main path, with the splat kernel's launch count set to 0 first:
+ 4. The main path, with the splat kernel's launch count set to 0 first:
     the full-width render forward+backward of the bench model and step
     (B=4, 128^2 rays, 64 coarse + 64 fine samples, pairwise merge, splat
-    backward, grads w.r.t. ws and pose) in f32 and in bf16 plane tables,
+    backward, grads w.r.t. ws and pose; bench.bench_config, timed by
+    bench.time_steps) in f32 and in bf16 plane tables,
     a 5-step 'mse' inversion at the same width, and a 5-step 'vgg'
     inversion (15 crop augmentations: LPIPS on 64 + 64 images of 128^2
     per step, random VGG16 features from a seed) with PSNR/SSIM/IoU of
     the render against the target before and after.
+ 5. The splat probes (P1, P2; csrc/splat_probes.cu): every P1 stage and P2
+    variant against its plain version at a small shape, every P1 stage at
+    three more small shapes at the edges of its launch plan (8 row
+    fragments, WX=48, a partial slab and a partly filled ring stage),
+    every P2 variant at the edges of its launch plan
+    (profile_splat.IO_EDGE_SHAPES), then each case of
+    python -m nerf_from_image_tpu_torch.profile_splat at its full shape:
+    checked against the plain version (P2: also two calls for equal
+    bits), then driven as its own path (its wrapper's launch count set to
+    0 just before, read just after) and timed both ways
+    (profile_splat.time_case: each call alone at cold L2 with the host out
+    of the way, and back to back), with its device activities (P2: one
+    kernel and no memset a call), beside its plain version, its bound,
+    its dense formulation's operation time (P1), the P2 output's zeroing
+    alone, and, where one exists, one PyTorch call computing the same
+    work (profile_splat.library_call). They run after the main path, so
+    that no torch.profiler session precedes its timings.
  6. The kernel summary line, the card line, and last the ok line.
 
 Weights are random, drawn from fixed seeds. Needs one card; exits non-zero
@@ -137,7 +146,7 @@ def phase_kernel(dev, model):
         splat_corners,
     )
     from nerf_from_image_tpu_torch.ops.sampling import compute_query_points_from_rays
-    from nerf_from_image_tpu_torch.profile_splat import cuda_ms
+    from nerf_from_image_tpu_torch.profile_splat import cuda_ms, device_ms
     from nerf_from_image_tpu_torch.profile_step import bench_poses, splat_calls
 
     cfg = RenderConfig(resolution=RES, depth_samples_per_ray=SAMPLES, scene_range=1.4,
@@ -229,7 +238,9 @@ def phase_kernel(dev, model):
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = n_ops / PEAK_F32_FLOPS * 1e3
     kernel_ms = results["coarse"]["ms"]
-    log(f"K1 times (coarse points): kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+    cold_ms = device_ms(lambda: splat3_backward(coords, g, H, W, grid, block))
+    log(f"K1 times (coarse points): kernel {kernel_ms:.4f} ms (each call alone at cold L2: "
+        f"{cold_ms:.4f} ms), plain {plain_ms:.3f} ms, "
         f"index_put_ {library_ms:.3f} ms; bound {max(bytes_ms, ops_ms):.4f} ms "
         f"({n_bytes / 1e9:.3f} GB -> {bytes_ms:.4f} ms, "
         f"{n_ops / 1e9:.2f} GFLOP f32 -> {ops_ms:.4f} ms), "
@@ -244,6 +255,7 @@ def phase_kernel(dev, model):
         "max_rel_err": max_rel,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
+        "cold_ms": cold_ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
         "bound_ms": max(bytes_ms, ops_ms),
@@ -341,8 +353,10 @@ def phase_small_vgg(dev):
 
 
 def phase_probes(dev):
-    """P1 and P2: small-shape checks, then every profile_splat case at full
-    shape (check, counted timed run, plain, bound, library call)."""
+    """P1 and P2: small-shape and edge-shape checks, then every
+    profile_splat case at full shape (check, counted timed run both ways,
+    device activities, plain, bound, library call; P2 also the zeroing of
+    its output alone and two calls' bits)."""
     import torch
 
     from nerf_from_image_tpu_torch import profile_splat as ps
@@ -360,28 +374,44 @@ def phase_probes(dev):
                            (ps.ProbeInputs(dev, b=1, h=32, w=64, n=256), 64, 16, 48),
                            (ps.ProbeInputs(dev, b=2, h=96, w=64, n=768), 192, 80, 20)):
         checks += [(inp, ps.Case("window", s, P, WY, WX)) for s in sp.STAGES]
+    # P2's launch plan at its edges (io_launch_plan, profile_splat.IO_EDGE_SHAPES).
+    for b, nb, P, h, w in ps.IO_EDGE_SHAPES:
+        inp = ps.ProbeInputs(dev, b=b, h=h, w=w, n=nb * P)
+        checks += [(inp, ps.Case("io", v, P)) for v in sp.IO_VARIANTS]
     for inp, case in checks:
         args = inp.args(case)
         _, rel = rel_err(ps.kernel_fn(case)(*args), ps.plain_fn(case)(*args))
         torch.cuda.synchronize()
         tol = WINDOW_PROBE_TOL if case.probe == "window" else IO_PROBE_TOL
         if not rel < tol:
-            raise AssertionError(f"{case.name} at a small shape: rel err {rel}")
+            raise AssertionError(f"{case.name} at B={inp.B}, H={inp.H}, W={inp.W}, "
+                                 f"N={inp.N}: rel err {rel}")
     log("splat probes at small shapes (B=1, H=W=32, P=64, WY=16, WX=8; P1 also "
-        "at WY=128 WX=4, WX=48, and P=192 WY=80 WX=20): every P1 stage and P2 "
-        "variant agrees with its plain version")
+        "at WY=128 WX=4, WX=48, and P=192 WY=80 WX=20; P2 also at (B, nblocks, P, "
+        f"H, W) in {ps.IO_EDGE_SHAPES}): every P1 stage and P2 variant agrees with "
+        "its plain version")
 
     inputs = ps.ProbeInputs(dev)
+    zero = ps.zero_ms(inputs)
+    log(f"torch.zeros of the P2 output [{inputs.B}, {inputs.H}, {inputs.W * PLANE_C}] f32: "
+        f"{zero['zero_ms']:.4f} ms (old method {zero['zero_old_method_ms']:.4f} ms)")
     entries = []
     for case in ps.CASES:
         args = inputs.args(case)
         kernel, plain = ps.kernel_fn(case), ps.plain_fn(case)
         ref = plain(*args)
-        abs_err, rel = rel_err(kernel(*args), ref)
+        got = kernel(*args)
+        abs_err, rel = rel_err(got, ref)
         torch.cuda.synchronize()
         tol = WINDOW_PROBE_TOL if case.probe == "window" else IO_PROBE_TOL
         if not (torch.isfinite(ref).all() and rel < tol):
             raise AssertionError(f"{case.name} disagrees with its plain version: {rel}")
+        if case.probe == "io":
+            again = kernel(*args)
+            if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+                raise AssertionError(f"{case.name}: two calls differ in their bits")
+            del again
+        del got
         library = ps.library_call(case, inputs)
         # Where the library call gives the output itself, it must agree.
         same = {"z_only": lambda: ref[:, 0, :case.WX * PLANE_C],
@@ -391,19 +421,28 @@ def phase_probes(dev):
             raise AssertionError(f"{case.name}: the library call computes another function")
         del ref
         kernel.launches = 0  # this case's path starts here
-        ms = ps.time_case(case, inputs)
+        t = ps.time_case(case, inputs)
         launches = kernel.launches
         if launches == 0:
             raise AssertionError(f"{case.name}: its kernel was not launched")
+        if case.probe == "io" and (len(t["activities"]) != 1
+                                   or "memset" in t["activities"][0].lower()):
+            raise AssertionError(f"{case.name}: a call is not one kernel and no memset: "
+                                 f"{t['activities']}")
         plain_ms = ps.cuda_ms(lambda: plain(*args), iters=2, warmup=0)
-        library_ms = None if library is None else ps.cuda_ms(library, iters=5)
+        library_ms = None if library is None else ps.device_ms(library)
         del library
         b = ps.bound(case)
         dense = b["dense_product_ms"]
-        log(f"{case.name}: kernel {ms:.4f} ms ({launches} launches), plain "
-            f"{plain_ms:.3f} ms, library {'-' if library_ms is None else f'{library_ms:.4f} ms'}"
+        zero_ms = zero["zero_ms"] if case.probe == "io" else None
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        log(f"{case.name}: kernel {t['ms']:.4f} ms (old method {t['old_method_ms']:.4f}; "
+            f"last device activity {t['kernel_ms']:.4f}; activities of a call "
+            f"{len(t['activities'])}: {', '.join(n[:40] for n in t['activities'])}; "
+            f"{launches} launches), plain {plain_ms:.3f} ms, library {lib}"
+            f"{'' if zero_ms is None else f', zero_ms {zero_ms:.4f}'}"
             f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes'] / 1e9:.4f} GB, "
-            f"{b['ops'] / 1e9:.3f} GOP f32), {100 * b['bound_ms'] / ms:.2f}% of bound"
+            f"{b['ops'] / 1e9:.3f} GOP f32), {100 * b['bound_ms'] / t['ms']:.2f}% of bound"
             f"{'' if dense is None else f'; dense formulation {dense:.4f} ms'}"
             f"; max rel err {rel:.2e}")
         entries.append({
@@ -415,13 +454,15 @@ def phase_probes(dev):
             "launches": launches,
             "max_abs_err": abs_err,
             "max_rel_err": rel,
-            "ms": ms,
-            "kernel_ms": ms,
+            "ms": t["ms"],
+            "old_method_ms": t["old_method_ms"],
+            "kernel_ms": t["kernel_ms"],
             "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"],
             "dense_product_ms": dense,
             "library_ms": library_ms,
+            **({} if zero_ms is None else {"zero_ms": zero_ms}),
         })
     del inputs
     torch.cuda.empty_cache()
@@ -432,16 +473,12 @@ def phase_render(dev, model, plane_dtype, splat3_backward, steps=3):
     """Full-width render forward+backward at the bench step."""
     import torch
 
-    from nerf_from_image_tpu_torch.engine.render import RenderConfig
+    from nerf_from_image_tpu_torch.bench import bench_config, result, time_steps
     from nerf_from_image_tpu_torch.profile_step import render_step
 
-    cfg = RenderConfig(
-        resolution=RES, depth_samples_per_ray=SAMPLES, fine_sampling=True,
-        scene_range=1.4, white_background=False, plane_dtype=plane_dtype,
-        query_chunk=None, plane_splat=True, merge_mode="pairwise",
-    )
+    cfg = bench_config(plane_dtype)
     step = render_step(model, cfg, dev)
-    label = f"plane_dtype={plane_dtype or 'float32'}"
+    label = f"plane_dtype={plane_dtype}"
     torch.cuda.reset_peak_memory_stats()
     before = splat3_backward.launches
     loss, gw, gp = step()  # warm-up
@@ -453,18 +490,13 @@ def phase_render(dev, model, plane_dtype, splat3_backward, steps=3):
     for name, t in (("loss", loss), ("d ws", gw), ("d pose", gp)):
         if not torch.isfinite(t).all():
             raise AssertionError(f"{label}: non-finite {name}")
-    times = []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    times = time_steps(step, steps, dev)
     peak = torch.cuda.max_memory_allocated()
     ms = float(np.median(times))
     log(f"render fwd+bwd {label}: loss {float(loss.detach()):.4f}, "
         f"|d ws| {float(gw.norm()):.4e}, |d pose| {float(gp.norm()):.4e}; "
         f"step ms {', '.join(f'{t:.1f}' for t in times)} (median {ms:.1f}), "
-        f"{BATCH * RES * RES / (ms / 1e3):.0f} rays/s, "
+        f"{json.dumps(result(times, BATCH, RES))}, "
         f"peak memory {peak / 2**30:.2f} GiB, splat launches per step 2")
 
 
@@ -597,14 +629,15 @@ def main() -> int:
     summary = phase_kernel(dev, model)
     phase_small_render(dev)
     phase_small_vgg(dev)
-    probes = phase_probes(dev)
 
     splat3_backward.launches = 0  # the main path starts here
-    phase_render(dev, model, None, splat3_backward)
+    phase_render(dev, model, "float32", splat3_backward)
     phase_render(dev, model, "bfloat16", splat3_backward)
     phase_inversion(dev, model, splat3_backward)
     phase_vgg_inversion(dev, model, splat3_backward)
     summary["launches"] = splat3_backward.launches
+
+    probes = phase_probes(dev)
 
     print(json.dumps({"kernels": [summary] + probes}))
     print(card)

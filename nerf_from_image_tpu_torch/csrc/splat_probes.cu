@@ -8,18 +8,21 @@
 //           out[b, oy0:oy0+WY, ox0*C:(ox0+WX)*C] += oy^T[WY x P] @ Z[P x WX*C],
 //       Z = zx * tile(g), oy and zx the bilinear tents of the points
 //       relative to the block's window, in seven ablation stages;
-//   P2  scripts/profile_splat_io.py (run, five probe kernels): launch and
-//       per-block overhead, g streaming and coordinate streaming.
+//   P2  scripts/profile_splat_io.py (run, five probe kernels): a zeroed
+//       [B, H, W*C] f32 output plus, per variant, 1.0 per block added into
+//       a 64 x 2048 corner (`empty`), or the sum of g, of iy + ix, or of
+//       the y tents of the points into out[b, 0, 0:C].
 //
 // What bounds P1: the function moves 0.34 GB at P=1024, WY=WX=64 (0.100 ms
 // at 3.35 TB/s, the bytes bound); its dense formulation, which is what the
 // probe prices, is 2*WY*P*WX*C flops per block, 1.10 TFLOP per call, 1.11 ms
 // at 989 TFLOP/s bf16 (dottile adds the 0/1 tile product: 1.67 ms). Then
-// the flush, 4*WY*WX*C bytes of reductions into L2 per block (2.1 GB, 0.85
-// ms by P2 `empty`). The tents are mostly zero (a point touches 2 rows and 2
-// x-positions), but every k-step is computed all the same: skipping the zero
-// chunks would measure how sparse the random inputs are, not the dense
-// formulation.
+// the flush, 4*WY*WX*C bytes of reductions into L2 per block (2.1 GB; 0.85
+// ms when P2's `empty` still flushed its corner once per block, a reading
+// kept in PERF.md section 6). The tents are mostly zero (a point touches 2
+// rows and 2 x-positions), but every k-step is computed all the same:
+// skipping the zero chunks would measure how sparse the random inputs are,
+// not the dense formulation.
 //
 // P1 design. The TPU kept the [H, W*C] plane of one batch element in VMEM
 // and ran the grid in order; here blocks run unordered and the plane does
@@ -63,11 +66,36 @@
 //     is computed in kernels/splat_probes.py::window_launch_plan and checked
 //     here.
 //
-// P2 design: one CTA per point block. The readers take a block reduction
-// in registers and shared memory and one atomic per block; they are bound
-// by the bytes they read. `empty` reads nothing and adds 1.0 into a 64 x
-// 2048 corner of the output per block (red.global.add.v4.f32, 512 KB per
-// block), so it measures launch, per-block overhead and P1's flush alone.
+// What bounds P2: bytes. Its inputs are read once and the 33.5 MB output
+// written once: 0.010 ms (`empty`, no input) to 0.020 ms (the coordinate
+// readers) at 3.35 TB/s, 0.090 ms for `read_g`'s 268 MB of g. `empty`'s
+// additions, one per block and corner element (0.54 G at P=1024), take
+// ~0.016 ms at one f32 add per lane and clock (half the 67 TFLOP/s peak,
+// which counts an FMA as two operations): more than its bytes.
+//
+// P2 design: one persistent launch of about two CTAs per SM, in place of
+// one CTA per point block with the output zeroed by a separate memset.
+//   - The kernel writes every output element itself: each CTA zeroes a
+//     contiguous range of the output with 16-byte streaming stores, so a
+//     call is one launch and no memset. A thread's stores are spread over
+//     its load steps (readers) or between chunks of additions (empty), so
+//     that they drain while the other work runs; issued first, they held
+//     the loads back.
+//   - Readers: each CTA walks a contiguous range of point blocks (the TPU
+//     grid's sequential k axis), 16-byte streaming loads with kIoUnroll of
+//     each input in flight per thread, sums in registers, one CTA
+//     reduction per batch element it touches, written to a compact
+//     scratch partial. No float atomics: the last CTA (an integer ticket
+//     after a fence) stages every partial in shared memory with all loads
+//     in flight, then adds them in CTA order, so every call gives the same
+//     bits. transpose_2P evaluates only the two lanes where a point's tent
+//     can be nonzero.
+//   - `empty`: as the TPU kept the output block resident in VMEM across the
+//     k axis, each CTA holds its tile of the corner in registers while
+//     every block adds 1.0, then stores it once.
+//   - The launch plan (CTAs, blocks and quads per CTA, scratch) is computed
+//     in kernels/splat_probes.py::io_launch_plan; the entry checks only
+//     what keeps the kernel inside its buffers.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC; bound with ctypes (plain C interface).
@@ -79,7 +107,12 @@
 namespace {
 
 constexpr int kC = 32;          // plane channels
-constexpr int kThreads = 256;   // P2: 8 warps
+constexpr int kIoThreads = 256;  // P2: 8 warps a CTA, two CTAs an SM
+constexpr int kIoUnroll = 8;     // P2: 16-byte loads in flight a thread, per input
+constexpr int kEmptyChunk = 32;  // P2 `empty`: blocks between two rounds of zero stores
+// P2: shared memory the last CTA may stage the partials in (227 KB less
+// the kernel's static arrays).
+constexpr int kMaxIoStaged = 232448 - 2048;
 constexpr int kMaxWarps = 8;    // P1: warps per CTA, at most
 constexpr int kRingHeader = 128;  // P1: the ring's mbarriers, then the stages
 constexpr int kRingPointBytes = 2 * 4 + kC * 2;  // P1: iy, ix f32 and g bf16
@@ -531,113 +564,368 @@ int launch_stage(int mt, int blocks, int warps, int nslabs, int chunk, int ring,
 
 // ---- P2 -------------------------------------------------------------------
 
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float partial[kThreads / 32];
+// Variants, as in kernels/splat_probes.py::IO_VARIANTS.
+enum IoVariant {
+  kEmpty = 0,
+  kReadG = 1,
+  kReadIxyP1 = 2,
+  kReadIxy2P = 3,
+  kTranspose2P = 4,
+};
+
+// Zeros, or a corner tile, with 16-byte streaming stores: the output is
+// written once and not read back by the kernel.
+__device__ __forceinline__ void store_cs_v4(float* p, float a, float b, float c,
+                                            float d) {
+  asm volatile("st.global.cs.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p), "f"(a),
+               "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+
+// A 16-byte streaming load of data read once.
+__device__ __forceinline__ float4 load_cs_v4(const void* p) {
+  return __ldcs(static_cast<const float4*>(p));
+}
+
+// `empty`'s per-block addition. Volatile, so that the compiler keeps one
+// add per block and element: every element of a tile takes the same
+// additions, and nothing else stops them being merged.
+__device__ __forceinline__ void add_one(float& x) {
+  asm volatile("add.rn.f32 %0, %0, 0f3F800000;" : "+f"(x));
+}
+
+// The two-lane tent sum of one point, in the plain version's op order:
+// lanes floor(y) and floor(y) + 1, where they lie in [0, 64), each
+// max(0, 1 - |lane - y|) + 0 * x; every other lane adds exactly +0.
+__device__ __forceinline__ float tent_pair(float y, float x) {
+  const float zero_x = __fmul_rn(0.0f, x);
+  const float f = floorf(y);
+  float s = 0.0f;
+  if (f >= 0.0f && f < 64.0f) s = __fadd_rn(tent(__fsub_rn(f, y)), zero_x);
+  const float f1 = __fadd_rn(f, 1.0f);
+  if (f1 >= 0.0f && f1 < 64.0f) s = __fadd_rn(s, __fadd_rn(tent(__fsub_rn(f1, y)), zero_x));
+  return s;
+}
+
+// The sum of v over the CTA in a fixed order: a shuffle tree per warp,
+// then the warps in order. Valid in thread 0.
+__device__ __forceinline__ float cta_sum(float v, float* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = v;
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   float s = 0.0f;
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) s += partial[w];
+    for (int w = 0; w < kIoThreads / 32; ++w) s += red[w];
   }
-  return s;  // valid in thread 0
-}
-
-// empty: each block adds 1.0 into out[b, :rows, :cols] with v4 reductions,
-// as each TPU grid step adds 1.0 into that corner of the plane: P1's
-// window flush (a 64 x 2048 f32 window) without tents or product.
-__global__ void __launch_bounds__(kThreads)
-io_empty_kernel(float* __restrict__ out, int nblocks, int H, int WC, int rows,
-                int cols) {
-  float* plane = out + static_cast<int64_t>(blockIdx.x / nblocks) * H * WC;
-  const float ones[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-  const int quads = cols / 4;
-  for (int e = threadIdx.x; e < rows * quads; e += kThreads)
-    red_add_v4(plane + static_cast<int64_t>(e / quads) * WC + (e % quads) * 4, ones);
-}
-
-// read_g: out[b, 0, c] += sum_p g[blk, p, c]. Thread = (point lane of 64,
-// 8-channel group of 4): one 16-byte load per point per thread.
-__global__ void __launch_bounds__(kThreads)
-io_read_g_kernel(const bf16* __restrict__ g, float* __restrict__ out,
-                 int nblocks, int P, int H, int WC) {
-  __shared__ float part[kThreads / 4][kC + 1];
-  const int t = threadIdx.x, q = t & 3, pl = t >> 2;
-  const uint4* src = reinterpret_cast<const uint4*>(
-      g + static_cast<int64_t>(blockIdx.x) * P * kC);
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int p = pl; p < P; p += kThreads / 4) {
-    uint4 v = __ldg(src + p * 4 + q);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      acc[2 * j] += f.x;
-      acc[2 * j + 1] += f.y;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) part[pl][q * 8 + j] = acc[j];
   __syncthreads();
-  if (t < kC) {
-    float s = 0.0f;
-    for (int i = 0; i < kThreads / 4; ++i) s += part[i][t];
-    atomicAdd(out + static_cast<int64_t>(blockIdx.x / nblocks) * H * WC + t, s);
-  }
+  return s;
 }
 
-// read_ixy_P1: out[b, 0, 0] += sum_p (iy + ix), from two [NB, P] arrays.
-__global__ void __launch_bounds__(kThreads)
-io_read_ixy_p1_kernel(const float* __restrict__ iy, const float* __restrict__ ix,
-                      float* __restrict__ out, int nblocks, int P, int H, int WC) {
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * P;
-  const float4* a = reinterpret_cast<const float4*>(iy + first);
-  const float4* c = reinterpret_cast<const float4*>(ix + first);
-  float s = 0.0f;
-  for (int i = threadIdx.x; i < P / 4; i += kThreads) {
-    const float4 u = __ldg(a + i), v = __ldg(c + i);
-    s += (u.x + v.x) + (u.y + v.y) + (u.z + v.z) + (u.w + v.w);
-  }
-  s = block_sum(s);
-  if (threadIdx.x == 0)
-    atomicAdd(out + static_cast<int64_t>(blockIdx.x / nblocks) * H * WC, s);
-}
+// A thread's share of the zeros: quads q0 + t, + kIoThreads, ... below q1
+// of out viewed as [B * H * WC / 4] quads, but for those that another
+// store owns (empty: the corner; readers: out[b, 0, 0 .. 4 *
+// epilogue_quads)). The quad's row and column within its batch element
+// follow it without divisions. store(n) writes the next n, so that the
+// stores can be spread over the loads or additions.
+template <int V>
+struct ZeroFill {
+  float* out;
+  int64_t q, q1;
+  int row, col;  // q's row of H and quad of wq
+  int H, wq, corner_rows, corner_wq, epilogue_quads;
 
-// read_ixy_2P: out[b, 0, 0] += sum of the block's [2, P] array.
-__global__ void __launch_bounds__(kThreads)
-io_read_ixy_2p_kernel(const float* __restrict__ ixy, float* __restrict__ out,
-                      int nblocks, int P, int H, int WC) {
-  const float4* a = reinterpret_cast<const float4*>(
-      ixy + static_cast<int64_t>(blockIdx.x) * 2 * P);
-  float s = 0.0f;
-  for (int i = threadIdx.x; i < P / 2; i += kThreads) {
-    const float4 u = __ldg(a + i);
-    s += (u.x + u.y) + (u.z + u.w);
+  __device__ int remaining() const {
+    return q < q1 ? static_cast<int>((q1 - q + kIoThreads - 1) / kIoThreads) : 0;
   }
-  s = block_sum(s);
-  if (threadIdx.x == 0)
-    atomicAdd(out + static_cast<int64_t>(blockIdx.x / nblocks) * H * WC, s);
-}
-
-// transpose_2P: out[b, 0, 0] += sum_p sum_{y<64} (max(0, 1-|y-iy|) + 0*ix),
-// reading iy and ix from the block's [2, P] array.
-__global__ void __launch_bounds__(kThreads)
-io_transpose_2p_kernel(const float* __restrict__ ixy, float* __restrict__ out,
-                       int nblocks, int P, int H, int WC) {
-  const float* v = ixy + static_cast<int64_t>(blockIdx.x) * 2 * P;
-  float s = 0.0f;
-  for (int p = threadIdx.x; p < P; p += kThreads) {
-    const float y = __ldg(v + p), x = __ldg(v + P + p);
-    const float zero_x = __fmul_rn(0.0f, x);
-    for (int lane = 0; lane < 64; ++lane) {
-      s += __fadd_rn(tent(__fsub_rn(static_cast<float>(lane), y)), zero_x);
+  __device__ void store(int n) {
+    for (; n > 0 && q < q1; q += kIoThreads) {
+      const bool owned = V == kEmpty ? (row < corner_rows && col < corner_wq)
+                                     : (row == 0 && col < epilogue_quads);
+      if (!owned) {
+        store_cs_v4(out + 4 * q, 0.f, 0.f, 0.f, 0.f);
+        --n;
+      }
+      col += kIoThreads;
+      while (col >= wq) {
+        col -= wq;
+        if (++row == H) row = 0;
+      }
     }
   }
-  s = block_sum(s);
-  if (threadIdx.x == 0)
-    atomicAdd(out + static_cast<int64_t>(blockIdx.x / nblocks) * H * WC, s);
+};
+
+// One batch element's segment [s0, s1) of the CTA's point blocks, summed
+// by the CTA: `width` floats (read_g: the 32 channel sums; otherwise one),
+// written to part[0 .. width) in shared memory. 16-byte loads, kIoUnroll
+// of each input in flight per thread, and `zeros_per_step` of the
+// thread's zero stores issued while they land.
+template <int V>
+__device__ __forceinline__ void segment_sum(const float* __restrict__ iy,
+                                            const float* __restrict__ ix,
+                                            const float* __restrict__ ixy,
+                                            const bf16* __restrict__ g, int64_t s0,
+                                            int64_t s1, int P, ZeroFill<V>& zeros,
+                                            int zeros_per_step, float* red,
+                                            float* part) {
+  const int t = threadIdx.x;
+  const float4 nil = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (V == kReadG) {
+    // Vector v holds channels 8 * (v % 4) .. + 7 of one point; the stride
+    // is a multiple of 4, so a thread keeps one channel group.
+    const int64_t v0 = s0 * P * 4, v1 = s1 * P * 4;
+    const float4* src = reinterpret_cast<const float4*>(g);
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int64_t v = v0 + t; v < v1; v += kIoThreads * kIoUnroll) {
+      float4 r[kIoUnroll];
+#pragma unroll
+      for (int u = 0; u < kIoUnroll; ++u)
+        r[u] = v + u * kIoThreads < v1 ? load_cs_v4(src + v + u * kIoThreads) : nil;
+      zeros.store(zeros_per_step);
+#pragma unroll
+      for (int u = 0; u < kIoUnroll; ++u) {
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r[u]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = __bfloat1622float2(h[j]);
+          acc[2 * j] += f.x;
+          acc[2 * j + 1] += f.y;
+        }
+      }
+    }
+    // Lanes with equal lane % 4 hold the same channels: a shuffle tree
+    // over the other lane bits, then the warps in order.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int o = 16; o >= 4; o >>= 1) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], o);
+    }
+    const int lane = t & 31, warp = t >> 5;
+    if (lane < 4) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) red[warp * kC + lane * 8 + j] = acc[j];
+    }
+    __syncthreads();
+    if (t < kC) {
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kIoThreads / 32; ++w) s += red[w * kC + t];
+      part[t] = s;
+    }
+    __syncthreads();
+    return;
+  }
+  float s = 0.0f;
+  if (V == kReadIxyP1) {
+    const int64_t v0 = s0 * P / 4, v1 = s1 * P / 4;
+    for (int64_t v = v0 + t; v < v1; v += kIoThreads * kIoUnroll) {
+      float4 a[kIoUnroll], c[kIoUnroll];
+#pragma unroll
+      for (int u = 0; u < kIoUnroll; ++u) {
+        const bool in = v + u * kIoThreads < v1;
+        a[u] = in ? load_cs_v4(iy + 4 * (v + u * kIoThreads)) : nil;
+        c[u] = in ? load_cs_v4(ix + 4 * (v + u * kIoThreads)) : nil;
+      }
+      zeros.store(zeros_per_step);
+#pragma unroll
+      for (int u = 0; u < kIoUnroll; ++u)
+        s += ((a[u].x + c[u].x) + (a[u].y + c[u].y)) + ((a[u].z + c[u].z) + (a[u].w + c[u].w));
+    }
+  } else if (V == kReadIxy2P) {
+    const int64_t v0 = s0 * P / 2, v1 = s1 * P / 2;
+    for (int64_t v = v0 + t; v < v1; v += kIoThreads * kIoUnroll) {
+      float4 a[kIoUnroll];
+#pragma unroll
+      for (int u = 0; u < kIoUnroll; ++u)
+        a[u] = v + u * kIoThreads < v1 ? load_cs_v4(ixy + 4 * (v + u * kIoThreads)) : nil;
+      zeros.store(zeros_per_step);
+#pragma unroll
+      for (int u = 0; u < kIoUnroll; ++u) s += (a[u].x + a[u].y) + (a[u].z + a[u].w);
+    }
+  } else {  // kTranspose2P: block k's iy at ixy[k, 0, :], its ix at ixy[k, 1, :]
+    const int q = P / 4;  // float4s of one coordinate row
+    const int64_t n = (s1 - s0) * q;
+    for (int64_t v = t; v < n; v += kIoThreads * kIoUnroll) {
+      float4 a[kIoUnroll], c[kIoUnroll];
+#pragma unroll
+      for (int u = 0; u < kIoUnroll; ++u) {
+        const int64_t w = v + u * kIoThreads;
+        const float* row = ixy + (s0 + w / q) * 2 * P + 4 * (w % q);
+        a[u] = w < n ? load_cs_v4(row) : nil;
+        c[u] = w < n ? load_cs_v4(row + P) : nil;
+      }
+      zeros.store(zeros_per_step);
+#pragma unroll
+      for (int u = 0; u < kIoUnroll; ++u) {
+        if (v + u * kIoThreads < n) {
+          s += tent_pair(a[u].x, c[u].x);
+          s += tent_pair(a[u].y, c[u].y);
+          s += tent_pair(a[u].z, c[u].z);
+          s += tent_pair(a[u].w, c[u].w);
+        }
+      }
+    }
+  }
+  s = cta_sum(s, red);
+  if (t == 0) part[0] = s;
+  __syncthreads();
+}
+
+// P2, every variant: one persistent launch that writes every element of
+// out [B, H, WC] once. The plan (kernels/splat_probes.py::io_launch_plan)
+// gives each CTA
+//   - a contiguous range of `zero_quads` 16-byte output quads to zero,
+//     spread over its loads (readers) or additions (empty);
+//   - empty: `corner_quads` quads of the corner [B, rows, cols], flattened
+//     batch, row, then quad, held in registers (2 a thread) while each of
+//     the `nblocks` blocks adds 1.0, then stored once;
+//   - readers: `blocks_per_cta` consecutive point blocks of the B *
+//     nblocks, summed per batch element b into the partial at
+//     scratch[(cta + b) * width ..] (the (CTA, b) pairs touched, in
+//     order: CTA ranges are consecutive). The last CTA to finish (an
+//     integer ticket after a fence) stages every partial in shared memory
+//     at once, adds each batch element's in CTA order, writes out[b, 0,
+//     0 .. 4 * epilogue_quads) (the sums, then zeros) and resets the
+//     ticket: no float atomics, the same bits on every call.
+template <int V>
+__global__ void __launch_bounds__(kIoThreads, 2)
+io_probe_kernel(const float* __restrict__ iy, const float* __restrict__ ix,
+                const float* __restrict__ ixy, const bf16* __restrict__ g,
+                float* __restrict__ out, float* __restrict__ scratch,
+                unsigned int* __restrict__ ticket, int B, int nblocks, int P, int H,
+                int WC, int blocks_per_cta, int64_t zero_quads, int corner_rows,
+                int corner_cols, int corner_quads, int width, int epilogue_quads,
+                int scratch_floats) {
+  extern __shared__ float4 staged4[];  // the last CTA's copy of scratch
+  __shared__ float red[(kIoThreads / 32) * kC];
+  __shared__ float part[kC];
+  __shared__ bool last;
+  const int t = threadIdx.x;
+  const int cta = blockIdx.x;
+
+  ZeroFill<V> zeros;
+  {
+    const int wq = WC / 4;
+    const int64_t total = static_cast<int64_t>(B) * H * wq;
+    const int64_t q0 = cta * zero_quads;
+    const int64_t q1 = q0 + zero_quads < total ? q0 + zero_quads : total;
+    const int in_plane = static_cast<int>((q0 + t) % (static_cast<int64_t>(H) * wq));
+    zeros = {out, q0 + t, q1, in_plane / wq, in_plane % wq, H, wq, corner_rows,
+             corner_cols / 4, epilogue_quads};
+  }
+
+  if (V == kEmpty) {
+    const int corner_wq = corner_cols / 4;
+    const int64_t corner_total = static_cast<int64_t>(B) * corner_rows * corner_wq;
+    const int64_t first = static_cast<int64_t>(cta) * corner_quads;
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    if (first < corner_total) {
+      // The additions in chunks of kEmptyChunk blocks, unrolled, with the
+      // thread's zero stores spread over the chunks so that they drain
+      // while the additions run.
+      const int chunks = nblocks / kEmptyChunk;
+      const int per_chunk = chunks > 0 ? (zeros.remaining() + chunks - 1) / chunks : 0;
+      for (int k = 0; k < chunks; ++k) {
+#pragma unroll
+        for (int j = 0; j < kEmptyChunk; ++j) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) add_one(acc[i][e]);
+        }
+        zeros.store(per_chunk);
+      }
+      for (int k = chunks * kEmptyChunk; k < nblocks; ++k) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) add_one(acc[i][e]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int local = t + i * kIoThreads;
+        const int64_t quad = first + local;
+        if (local >= corner_quads || quad >= corner_total) continue;
+        const int64_t row = quad / corner_wq;  // b * corner_rows + r
+        const int64_t b = row / corner_rows, r = row % corner_rows;
+        store_cs_v4(out + (b * H + r) * WC + 4 * (quad % corner_wq), acc[i][0],
+                    acc[i][1], acc[i][2], acc[i][3]);
+      }
+    }
+    zeros.store(zeros.remaining());
+    return;
+  }
+
+  // Readers: the CTA's blocks, one segment per batch element they touch,
+  // with the zero stores spread over the load steps.
+  const int64_t nb_total = static_cast<int64_t>(B) * nblocks;
+  const int64_t k0 = static_cast<int64_t>(cta) * blocks_per_cta;
+  const int64_t k1 = k0 + blocks_per_cta < nb_total ? k0 + blocks_per_cta : nb_total;
+  {
+    const int64_t vectors = (k1 - k0) * (V == kReadG ? 4 * P : V == kReadIxy2P ? P / 2 : P / 4);
+    const int64_t steps = vectors > 0 ? (vectors + kIoThreads * kIoUnroll - 1) / (kIoThreads * kIoUnroll) : 1;
+    const int zeros_per_step = static_cast<int>((zeros.remaining() + steps - 1) / steps);
+    for (int64_t b = k0 / nblocks; b <= (k1 - 1) / nblocks; ++b) {
+      const int64_t s0 = k0 > b * nblocks ? k0 : b * nblocks;
+      const int64_t s1 = k1 < (b + 1) * nblocks ? k1 : (b + 1) * nblocks;
+      segment_sum<V>(iy, ix, ixy, g, s0, s1, P, zeros, zeros_per_step, red, part);
+      if (t < width) scratch[(cta + b) * width + t] = part[t];
+    }
+  }
+  zeros.store(zeros.remaining());
+
+  // The last CTA adds the partials; its reads see every CTA's writes.
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  {
+    const float4* src = reinterpret_cast<const float4*>(scratch);
+    const int n4 = scratch_floats / 4;
+    for (int i = t; i < n4; i += kIoThreads * 8) {
+      float4 r[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        r[u] = i + u * kIoThreads < n4 ? __ldcg(src + i + u * kIoThreads)
+                                       : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (i + u * kIoThreads < n4) staged4[i + u * kIoThreads] = r[u];
+    }
+  }
+  __syncthreads();
+  const float* staged = reinterpret_cast<const float*>(staged4);
+  // `parts` neighbouring lanes share one output (b, c): each adds every
+  // parts-th CTA of those that touched b, then a shuffle tree adds the
+  // lanes. Fixed order throughout.
+  const int n_out = B * width;
+  int parts = 32;
+  while (parts > 1 && parts * n_out > kIoThreads) parts >>= 1;
+  const int per_round = kIoThreads / parts;
+  for (int base = 0; base < n_out; base += per_round) {
+    const int o = base + t / parts, lane_part = t % parts;
+    float s = 0.0f;
+    int64_t b = 0;
+    int c = 0;
+    if (o < n_out) {
+      b = o / width;
+      c = o % width;
+      const int64_t lo = b * nblocks / blocks_per_cta;
+      const int64_t hi = ((b + 1) * nblocks - 1) / blocks_per_cta;
+      for (int64_t k = lo + lane_part; k <= hi; k += parts) s += staged[(k + b) * width + c];
+    }
+    for (int off = parts >> 1; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (o < n_out && lane_part == 0) out[b * H * static_cast<int64_t>(WC) + c] = s;
+  }
+  // The epilogue quads' other elements are zeros.
+  const int pad = 4 * epilogue_quads;
+  for (int i = t; i < B * pad; i += kIoThreads) {
+    if (i % pad >= width) out[static_cast<int64_t>(i / pad) * H * WC + i % pad] = 0.0f;
+  }
+  if (t == 0) *ticket = 0u;
 }
 
 }  // namespace
@@ -686,39 +974,62 @@ extern "C" int splat_window_probe(const int32_t* oy0, const int32_t* ox0,
 #undef P1_LAUNCH
 }
 
-// P2. variant: 0 empty, 1 read_g, 2 read_ixy_P1, 3 read_ixy_2P,
-// 4 transpose_2P (kernels/splat_probes.py::IO_VARIANTS). iy, ix [B*nblocks,
-// P] f32; ixy [B*nblocks, 2, P] f32; g [B*nblocks, P, 32] bf16; out [B, H,
-// W*32] f32, zeroed by the caller.
+// P2. variant: as in IoVariant (kernels/splat_probes.py::IO_VARIANTS). iy,
+// ix [B*nblocks, P] f32; ixy [B*nblocks, 2, P] f32; g [B*nblocks, P, 32]
+// bf16, each 16-byte aligned; out [B, H, W*32] f32, which the kernel
+// writes whole (the caller need not zero it); scratch of scratch_floats
+// f32 (a multiple of 4; staged whole in the last CTA's shared memory);
+// ticket one u32, zero before the call and left zero after it. The
+// launch plan (ctas .. epilogue_quads) comes from
+// kernels/splat_probes.py::io_launch_plan; this checks only what keeps the
+// kernel's accesses inside its buffers and returns cudaErrorInvalidValue
+// otherwise.
 extern "C" int splat_io_probe(int variant, const float* iy, const float* ix,
                               const float* ixy, const void* g, float* out,
-                              int B, int nblocks, int P, int H, int W,
-                              void* stream) {
-  const int blocks = B * nblocks;
-  if (blocks <= 0 || P % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                              float* scratch, unsigned int* ticket, int B,
+                              int nblocks, int P, int H, int W, int ctas,
+                              int blocks_per_cta, long long zero_quads,
+                              int corner_rows, int corner_cols, int corner_quads,
+                              int width, int epilogue_quads,
+                              long long scratch_floats, void* stream) {
   const int WC = W * kC;
-  switch (variant) {
-    case 0: {
-      const int rows = H < 64 ? H : 64, cols = WC < 2048 ? WC : 2048;
-      io_empty_kernel<<<blocks, kThreads, 0, s>>>(out, nblocks, H, WC, rows, cols);
-      break;
-    }
-    case 1:
-      io_read_g_kernel<<<blocks, kThreads, 0, s>>>(static_cast<const bf16*>(g), out,
-                                                   nblocks, P, H, WC);
-      break;
-    case 2:
-      io_read_ixy_p1_kernel<<<blocks, kThreads, 0, s>>>(iy, ix, out, nblocks, P, H, WC);
-      break;
-    case 3:
-      io_read_ixy_2p_kernel<<<blocks, kThreads, 0, s>>>(ixy, out, nblocks, P, H, WC);
-      break;
-    case 4:
-      io_transpose_2p_kernel<<<blocks, kThreads, 0, s>>>(ixy, out, nblocks, P, H, WC);
-      break;
-    default:
+  if (B <= 0 || nblocks <= 0 || P <= 0 || P % 4 != 0 || H <= 0 || W <= 0 ||
+      ctas <= 0 || zero_quads < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == kEmpty) {
+    if (scratch_floats != 0 || corner_rows < 0 || corner_rows > H || corner_cols < 0 ||
+        corner_cols > WC || corner_cols % 4 != 0 || corner_quads < 0 ||
+        corner_quads > 2 * kIoThreads)
       return static_cast<int>(cudaErrorInvalidValue);
+  } else if (blocks_per_cta <= 0 || width <= 0 || width > kC ||
+             epilogue_quads * 4 < width || epilogue_quads * 4 > WC ||
+             scratch_floats < (static_cast<long long>(ctas) + B - 1) * width ||
+             scratch_floats % 4 != 0 || scratch_floats * 4 > kMaxIoStaged ||
+             ticket == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* gb = static_cast<const bf16*>(g);
+  const int smem = static_cast<int>(scratch_floats) * 4;
+#define P2_LAUNCH(V)                                                                \
+  if (smem > 48 * 1024) {                                                           \
+    cudaError_t e = cudaFuncSetAttribute(                                           \
+        io_probe_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);     \
+    if (e != cudaSuccess) return static_cast<int>(e);                               \
+  }                                                                                 \
+  io_probe_kernel<V><<<ctas, kIoThreads, smem, s>>>(                                \
+      iy, ix, ixy, gb, out, scratch, ticket, B, nblocks, P, H, WC, blocks_per_cta,  \
+      zero_quads, corner_rows, corner_cols, corner_quads, width, epilogue_quads,    \
+      static_cast<int>(scratch_floats));                                            \
+  break
+  switch (variant) {
+    case kEmpty: P2_LAUNCH(kEmpty);
+    case kReadG: P2_LAUNCH(kReadG);
+    case kReadIxyP1: P2_LAUNCH(kReadIxyP1);
+    case kReadIxy2P: P2_LAUNCH(kReadIxy2P);
+    case kTranspose2P: P2_LAUNCH(kTranspose2P);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef P2_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,11 @@ STAGES = ("full", "static_store", "no_tile", "z_only", "oy_only", "bf16build",
 IO_VARIANTS = ("empty", "read_g", "read_ixy_P1", "read_ixy_2P", "transpose_2P")
 # `empty` fills this corner of each batch element's output.
 EMPTY_ROWS, EMPTY_COLS = 64, 2048
+# P2's kernel: threads per CTA, CTAs per SM, and the corner quads (16
+# bytes) a CTA of `empty` holds in registers, two a thread.
+IO_THREADS = 256
+IO_CTAS_PER_SM = 2
+EMPTY_TILE_QUADS = 2 * IO_THREADS
 _P_MULTIPLE = 64  # the kernel's k-steps and ring stages take whole 64s
 # P1's kernel: at most this many f32 accumulators per thread (a warp holds
 # WY rows x its columns), warps per CTA, points per ring stage, ring
@@ -51,7 +56,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.splat_window_probe.argtypes = [p, p, p, p, p, p] + [i] * 14 + [p]
     lib.splat_window_probe.restype = i
-    lib.splat_io_probe.argtypes = [i, p, p, p, p, p] + [i] * 5 + [p]
+    q = ctypes.c_longlong
+    lib.splat_io_probe.argtypes = ([i] + [p] * 7 + [i] * 7 + [q] + [i] * 5 + [q, p])
     lib.splat_io_probe.restype = i
     return lib
 
@@ -256,6 +262,48 @@ def _check_io_args(variant, iy, ix, ixy, g, H, W):
     return B, nb, P
 
 
+class IoPlan(NamedTuple):
+    """How P2's persistent kernel covers the work: `ctas` CTAs, each
+    zeroing a contiguous range of `zero_quads` 16-byte output quads (but
+    for the quads that the corner's owners or the last CTA write), and
+    either (empty) owning `corner_quads` quads of the corner [B, rows,
+    cols], flattened batch, row, then quad, or (readers) walking
+    `blocks_per_cta` consecutive point blocks of the B * nblocks, with the
+    partial of `width` floats for each (CTA, batch element b) it touches
+    at scratch[(CTA + b) * width]: the ranges are consecutive, so these
+    slots are distinct and, in order, the pairs in (b, CTA) order."""
+
+    ctas: int
+    blocks_per_cta: int   # readers; 0 for empty
+    zero_quads: int
+    corner_rows: int      # empty: min(H, EMPTY_ROWS); else 0
+    corner_cols: int      # empty: min(W * C, EMPTY_COLS); else 0
+    corner_quads: int     # empty; else 0
+    width: int            # readers: 32 (read_g) or 1; empty 0
+    epilogue_quads: int   # readers: quads of out[b, 0] the last CTA writes
+    scratch_floats: int   # readers: (ctas + B - 1) * width, rounded up to 4
+
+
+def io_launch_plan(variant, B, nblocks, P, H, W, sms) -> IoPlan:
+    """P2's launch plan on a card with `sms` SMs: about IO_CTAS_PER_SM CTAs
+    an SM (empty: at least enough that each CTA's corner tile fits its
+    registers), the work split evenly and in order."""
+    total_quads = B * H * W * C // 4
+    target = IO_CTAS_PER_SM * sms
+    if variant == "empty":
+        rows, cols = min(H, EMPTY_ROWS), min(W * C, EMPTY_COLS)
+        corner = B * rows * cols // 4
+        ctas = max(target, -(-corner // EMPTY_TILE_QUADS))
+        return IoPlan(ctas, 0, -(-total_quads // ctas), rows, cols,
+                      -(-corner // ctas), 0, 0, 0)
+    blocks = B * nblocks
+    per_cta = -(-blocks // min(target, blocks))
+    ctas = -(-blocks // per_cta)
+    width = C if variant == "read_g" else 1
+    return IoPlan(ctas, per_cta, -(-total_quads // ctas), 0, 0, 0, width,
+                  -(-width // 4), -(-(ctas + B - 1) * width // 4) * 4)
+
+
 def splat_io_probe_reference(variant, iy, ix, ixy, g, H, W):
     """Plain PyTorch version of P2. Returns out [B, H, W * C] f32."""
     B, nb, P = _check_io_args(variant, iy, ix, ixy, g, H, W)
@@ -275,11 +323,24 @@ def splat_io_probe_reference(variant, iy, ix, ixy, g, H, W):
     return out
 
 
+# The kernel's ticket counter: one u32 per device, zeroed once; each call
+# leaves it zero. Calls on one device must not overlap (one stream).
+_tickets = {}
+
+
+def _ticket(device) -> torch.Tensor:
+    t = _tickets.get(device)
+    if t is None:
+        t = torch.zeros(1, dtype=torch.int32, device=device)
+        _tickets[device] = t
+    return t
+
+
 def splat_io_probe(variant, iy, ix, ixy, g, H, W):
     """P2: one streaming floor of the splat. iy, ix: [B, nblocks, P] f32;
     ixy: [B, nblocks, 2, P] f32 (iy and ix stacked per block); g:
     [B, nblocks, P, 32] bf16. Each variant reads only its inputs and
-    returns out [B, H, W * 32] f32:
+    returns out [B, H, W * 32] f32, zero but for:
 
         empty:         out[b, :64, :2048] = nblocks (each block adds 1.0)
         read_g:        out[b, 0, :32] = sum of g over the points
@@ -287,17 +348,31 @@ def splat_io_probe(variant, iy, ix, ixy, g, H, W):
         read_ixy_2P:   out[b, 0, 0] = the same sum, from ixy
         transpose_2P:  out[b, 0, 0] = sum_p sum_{y<64} max(0, 1 - |y - iy|)
 
-    On a CUDA tensor this launches the variant's kernel and counts it in
-    `splat_io_probe.launches`; on a CPU tensor it runs
+    On a CUDA tensor this launches the persistent kernel of
+    csrc/splat_probes.cu once on the current stream, with io_launch_plan's
+    plan; it writes the whole output (allocated with torch.empty, so a
+    call is one launch and no memset) and sums in a fixed order, so that
+    every call gives the same bits. The launch is counted in
+    `splat_io_probe.launches`. On a CPU tensor it runs
     splat_io_probe_reference.
     """
     B, nb, P = _check_io_args(variant, iy, ix, ixy, g, H, W)
     if iy.device.type == "cpu":
         return splat_io_probe_reference(variant, iy, ix, ixy, g, H, W)
-    out = torch.zeros((B, H, W * C), dtype=torch.float32, device=iy.device)
+    sms = torch.cuda.get_device_properties(iy.device).multi_processor_count
+    plan = io_launch_plan(variant, B, nb, P, H, W, sms)
+    out = torch.empty((B, H, W * C), dtype=torch.float32, device=iy.device)
+    for name, t in (("iy", iy), ("ix", ix), ("ixy", ixy), ("g", g), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the vector accesses")
+    scratch = torch.empty(max(plan.scratch_floats, 1), dtype=torch.float32,
+                          device=iy.device)
     rc = _lib().splat_io_probe(
         IO_VARIANTS.index(variant), iy.data_ptr(), ix.data_ptr(), ixy.data_ptr(),
-        g.data_ptr(), out.data_ptr(), B, nb, P, H, W,
+        g.data_ptr(), out.data_ptr(), scratch.data_ptr(), _ticket(iy.device).data_ptr(),
+        B, nb, P, H, W, plan.ctas, plan.blocks_per_cta, plan.zero_quads,
+        plan.corner_rows, plan.corner_cols, plan.corner_quads, plan.width,
+        plan.epilogue_quads, plan.scratch_floats,
         torch.cuda.current_stream(iy.device).cuda_stream,
     )
     if rc != 0:

@@ -10,24 +10,34 @@ inputs are made as those scripts make them: numpy default_rng(0), the same
 draws in the same order, B=4, H=W=256, C=32, N=128*128*64 points per batch
 element in blocks of P.
 
-Each case prints its time (CUDA events over several calls after a
-warm-up, the output's zeroing included), its bound (the larger of the
-bytes it must move over the memory rate and the operations its output
-needs over the card's peak rate), the share of the bound reached and, for
-P1, the time of its dense formulation's operations at peak rate. The last
-line is one JSON object with every case.
+Each case prints its time per call in two ways: `ms`, the median of
+DEVICE_ITERS calls each timed alone at cold L2 with the host out of the
+way (`device_ms`), and `old_method_ms`, the mean of 5 calls launched back
+to back from Python between one pair of CUDA events at warm L2
+(`cuda_ms`); both include whatever the wrapper launches (P1's wrapper
+zeroes its output first). Beside them: the device activities of one
+call and the time of its last one, the kernel itself (`call_activities`),
+its bound (the larger of the bytes it must move over the memory rate and
+the operations its output needs over the card's peak rate), the share of
+the bound reached, for P1 the time of its dense formulation's operations
+at peak rate, and for P2 the zeroing of the output alone (`zero_ms`) and
+the library call, both timed the two ways. The last line is one JSON
+object with every case.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import subprocess
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from nerf_from_image_tpu_torch.kernels.splat_probes import (
+    EMPTY_COLS,
+    EMPTY_ROWS,
     IO_VARIANTS,
     STAGES,
     _tents,
@@ -48,6 +58,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 TENT_OPS = 4  # two subtractions, 1 - |d|, max(0, .)
+# device_ms: calls timed one by one, each after writing FLUSH_BYTES (five
+# times the 50 MB L2) and reading CLEAN_BYTES of another buffer, then a
+# device-side spin of SLEEP_CYCLES clocks (~0.5 ms at 1.98 GHz) while the
+# host enqueues the call.
+DEVICE_ITERS = 20
+FLUSH_BYTES = 256 << 20
+CLEAN_BYTES = 64 << 20
+SLEEP_CYCLES = 1 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +95,15 @@ CASES = (
     + [Case("io", v, 1024) for v in IO_VARIANTS]
     + [Case("io", "read_ixy_P1", 4096), Case("io", "empty", 4096)]
 )
+
+
+# P2 at the edges of its launch plan (B, nblocks, P, H, W), beside the
+# cases above; on 132 SMs: CTA ranges that cross batch boundaries (333
+# blocks a batch element, 6 a CTA); nblocks not a multiple of the CTA
+# count (530 blocks, 3 a CTA, 2 in the last); B=1 with a single block; and
+# P=64 at the scripts' full shape (249 blocks a CTA, both of the above).
+IO_EDGE_SHAPES = ((4, 333, 64, 32, 32), (1, 530, 64, 32, 32), (1, 1, 64, 32, 32),
+                  (B, N // 64, 64, H, W))
 
 
 class ProbeInputs:
@@ -167,6 +194,7 @@ def bound(case: Case, b=B, h=H, w=W, n=N) -> dict:
     formulation instead, every tent entry and the whole window product:
     `dense_product_ms` is that work over the bf16 tensor-core rate (the
     product) and the f32 rate (the rest), whichever is longer; None for P2.
+    P2's `empty` does one add per block and corner element.
     """
     points = b * n
     coord = 4 * points  # one f32 coordinate array
@@ -193,12 +221,14 @@ def bound(case: Case, b=B, h=H, w=W, n=N) -> dict:
             case.variant, 2 * coord)
         n_bytes = reads + out
         ops = points * {
-            "empty": 0,
+            "empty": 0,  # below: one add per block and corner element
             "read_g": C,
             "read_ixy_P1": 2,
             "read_ixy_2P": 2,
             "transpose_2P": 2 * (TENT_OPS + 2),  # the 2 nonzero lanes: + 0*ix, sum
         }[case.variant]
+        if case.variant == "empty":
+            ops = points // case.P * min(h, EMPTY_ROWS) * min(w * C, EMPTY_COLS)
     times = {
         "bytes": n_bytes / PEAK_BYTES_PER_S * 1e3,
         "operations": ops / PEAK_F32_FLOPS * 1e3,
@@ -209,7 +239,9 @@ def bound(case: Case, b=B, h=H, w=W, n=N) -> dict:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean device time of fn() in ms: CUDA events around `iters` calls."""
+    """Mean device time of fn() in ms: CUDA events around `iters` calls
+    launched back to back from Python (warm L2; for a short kernel the
+    host's launch path can set the pace)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -223,11 +255,110 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_case(case: Case, inputs: ProbeInputs) -> float:
-    """The kernel's ms per call at the case's full shape."""
+def _cold_buffers() -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flush and clean buffers of `_cold_preamble`, made by each
+    measurement and freed with it."""
+    return (torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda"),
+            torch.ones(CLEAN_BYTES // 4, dtype=torch.float32, device="cuda"))
+
+
+def _cold_preamble(buffers, cycles: int) -> None:
+    """Evicts the next call's data from L2 and holds the stream back:
+    writes FLUSH_BYTES, then reads CLEAN_BYTES of another buffer, so that
+    L2 holds clean lines of neither the call nor the flush and the call
+    pays no write-back of the flush, then spins `cycles` clocks on the
+    device while the host enqueues the call."""
+    flush, clean = buffers
+    flush.fill_(1.0)
+    clean.sum()
+    torch.cuda._sleep(cycles)
+
+
+def device_ms(fn, iters: int = DEVICE_ITERS) -> float:
+    """Median device time of one fn() call in ms, with the host out of the
+    way: each call runs after `_cold_preamble` (cold L2, the call queued
+    behind a device-side spin) between its own pair of CUDA events. If the
+    device reaches a call's first event before the host has queued the
+    call, the spin doubles and the calls are timed again."""
+    buffers = _cold_buffers()
+    fn()
+    torch.cuda.synchronize()
+    cycles = SLEEP_CYCLES
+    while True:
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+        late = 0
+        for start, end in pairs:
+            _cold_preamble(buffers, cycles)
+            start.record()
+            fn()
+            end.record()
+            late += start.query()
+        torch.cuda.synchronize()
+        if not late:
+            return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+        if cycles >= 64 * SLEEP_CYCLES:
+            raise RuntimeError("device_ms: the host fell behind a spin of "
+                               f"{cycles} clocks")
+        cycles *= 2
+
+
+def _device_events(prof):
+    """(start us, name, duration us) of every device activity traced."""
+    return sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                  for e in prof.events() if str(e.device_type).endswith("CUDA"))
+
+
+def call_activities(fn, iters: int = 3):
+    """The device activities (kernels, memsets) of `iters` calls of fn,
+    each after `_cold_preamble`, from torch.profiler: one list per call of
+    (name, duration in us), in stream order. A call's activities are those
+    after its preamble's spin kernel; every call must show the same names
+    (a trace may drop the first activity of a session, so the calls are
+    found from the spins and the last call's length, not from counts)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    buffers = _cold_buffers()  # made outside the trace
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            _cold_preamble(buffers, SLEEP_CYCLES)
+            fn()
+        torch.cuda.synchronize()
+    events = [(name, us) for _, name, us in _device_events(prof)]
+    spins = [i for i, (name, _) in enumerate(events) if "spin_kernel" in name]
+    last = events[spins[-1] + 1:] if spins else []
+    calls = [events[i + 1:i + 1 + len(last)] for i in spins[:-1]] + [last]
+    if len(spins) != iters or not last or any(
+            [n for n, _ in c] != [n for n, _ in last] for c in calls):
+        raise RuntimeError(f"call_activities: cannot split {len(events)} device "
+                           f"activities into {iters} calls: {[n for n, _ in events]}")
+    return calls
+
+
+def zero_ms(inputs: "ProbeInputs") -> dict:
+    """The zeroing of a P2 output alone, torch.zeros of [B, H, W * C] f32,
+    timed both ways."""
+    fn = lambda: torch.zeros((inputs.B, inputs.H, inputs.W * C),  # noqa: E731
+                             dtype=torch.float32, device=inputs.device)
+    return {"zero_ms": device_ms(fn), "zero_old_method_ms": cuda_ms(fn, iters=5, warmup=2)}
+
+
+def time_case(case: Case, inputs: ProbeInputs) -> dict:
+    """The wrapper's ms per call at the case's full shape, both ways, and
+    its device activities: `ms` (device_ms), `old_method_ms` (cuda_ms over
+    5 calls), `activities` (names of one call's, in stream order) and
+    `kernel_ms` (the median time of a call's last activity, the kernel)."""
     args = inputs.args(case)
     fn = kernel_fn(case)
-    return cuda_ms(lambda: fn(*args), iters=5, warmup=2)
+    call = lambda: fn(*args)  # noqa: E731
+    acts = call_activities(call)
+    return {
+        "ms": device_ms(call),
+        "old_method_ms": cuda_ms(call, iters=5, warmup=2),
+        "activities": [name for name, _ in acts[0]],
+        "kernel_ms": float(np.median([a[-1][1] for a in acts])) / 1e3,
+    }
 
 
 def window_bmm_operands(inputs: ProbeInputs, case: Case):
@@ -279,17 +410,34 @@ def library_call(case: Case, inputs: ProbeInputs):
 
 def main() -> None:
     dev = resolve_device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     inputs = ProbeInputs(dev)
+    zero = zero_ms(inputs)
+    print(f"  torch.zeros of the [{B}, {H}, {W * C}] f32 output: {zero['zero_ms']:.4f} ms "
+          f"(old method {zero['zero_old_method_ms']:.4f} ms)", flush=True)
     rows = []
     for case in CASES:
-        ms = time_case(case, inputs)
+        t = time_case(case, inputs)
         b = bound(case)
-        rows.append({"name": case.name, "ms": ms, **b})
+        row = {"name": case.name, **t, **b}
+        lib = ""
+        if case.probe == "io":
+            row.update(zero)
+            library = library_call(case, inputs)
+            row["library_ms"] = None if library is None else device_ms(library)
+            row["library_old_method_ms"] = (None if library is None
+                                            else cuda_ms(library, iters=5, warmup=2))
+            lib = ("  library none" if library is None else
+                   f"  library {row['library_ms']:.4f} (old method "
+                   f"{row['library_old_method_ms']:.4f})")
+        rows.append(row)
         dense = ("" if b["dense_product_ms"] is None
                  else f"  dense {b['dense_product_ms']:8.4f} ms")
-        print(f"  {case.name:48s} {ms:9.4f} ms  bound {b['bound_ms']:8.4f} ms "
-              f"({b['bound_by']})  {100 * b['bound_ms'] / ms:6.2f}% of bound{dense}",
-              flush=True)
+        print(f"  {case.name:48s} {t['ms']:9.4f} ms (old method {t['old_method_ms']:.4f}, "
+              f"kernel {t['kernel_ms']:.4f}, {len(t['activities'])} activities)  "
+              f"bound {b['bound_ms']:8.4f} ms ({b['bound_by']})  "
+              f"{100 * b['bound_ms'] / t['ms']:6.2f}% of bound{dense}{lib}", flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "cases": rows}))
 
 

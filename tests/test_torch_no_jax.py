@@ -47,7 +47,7 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     names = _modules()
     for module in ("kernels.splat_probes", "profile_splat", "ops.grid_sample",
-                   "engine.augment", "models.lpips", "metrics.image"):
+                   "engine.augment", "models.lpips", "metrics.image", "bench"):
         assert f"nerf_from_image_tpu_torch.{module}" in names, module
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER], cwd=REPO, capture_output=True,

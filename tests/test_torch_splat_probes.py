@@ -287,3 +287,100 @@ def test_window_launch_plan_covers_each_column_once(stage, P, WY, WX):
     assert np.all(covered == 1)
     assert plan.smem_bytes <= tp.MAX_SMEM == 227 * 1024
     assert plan.accumulators <= tp.ACC_BUDGET
+
+
+# Every profile_splat P2 case, chip_smoke.py's small shape and its edge
+# shapes, as (variant, B, nblocks, P, H, W).
+_IO_PLAN_SHAPES = sorted(
+    {(c.variant, ps.B, ps.N // c.P, c.P, ps.H, ps.W) for c in ps.CASES if c.probe == "io"}
+    | {(v, B, NBLOCKS, P, H, W) for v in tp.IO_VARIANTS}
+    | {(v, *shape) for v in tp.IO_VARIANTS for shape in ps.IO_EDGE_SHAPES})
+
+
+@pytest.mark.parametrize("sms", (132, 7))
+@pytest.mark.parametrize("variant,b,nblocks,p,h,w", _IO_PLAN_SHAPES)
+def test_io_launch_plan_covers_each_block_once(variant, b, nblocks, p, h, w, sms):
+    """The kernel's index arithmetic (csrc/splat_probes.cu::io_probe_kernel)
+    on the plan: each point block is walked by one CTA, each output quad
+    written by one CTA, and each partial has its own slot in scratch that
+    the last CTA reads."""
+    plan = tp.io_launch_plan(variant, b, nblocks, p, h, w, sms)
+    wq = w * C // 4
+    plane = h * wq
+    total = b * plane
+    writes = np.zeros(total, np.int32)
+    for cta in range(plan.ctas):
+        writes[cta * plan.zero_quads:(cta + 1) * plan.zero_quads] += 1
+    in_plane = np.arange(total) % plane
+    if variant == "empty":
+        cwq = plan.corner_cols // 4
+        owned = (in_plane // wq < plan.corner_rows) & (in_plane % wq < cwq)
+        writes[owned] = 0
+        corner = b * plan.corner_rows * cwq
+        assert plan.corner_quads <= tp.EMPTY_TILE_QUADS  # a CTA's registers
+        quads = np.arange(min(plan.ctas * plan.corner_quads, corner))
+        rows = quads // cwq
+        np.add.at(writes, ((rows // plan.corner_rows) * h + rows % plan.corner_rows) * wq
+                  + quads % cwq, 1)
+        assert (plan.corner_rows, plan.corner_cols) == (min(h, 64), min(w * C, 2048))
+    else:
+        writes[in_plane < plan.epilogue_quads] = 1  # the last CTA's sums and zeros
+        assert 4 * plan.epilogue_quads >= plan.width == (C if variant == "read_g" else 1)
+        walked = np.zeros(b * nblocks, np.int32)
+        slots = set()
+        touched = {bb: [] for bb in range(b)}
+        for cta in range(plan.ctas):
+            k0, k1 = cta * plan.blocks_per_cta, min((cta + 1) * plan.blocks_per_cta, b * nblocks)
+            assert k0 < k1  # no CTA without blocks
+            walked[k0:k1] += 1
+            for bb in range(k0 // nblocks, (k1 - 1) // nblocks + 1):
+                slot = (cta + bb) * plan.width
+                assert slot + plan.width <= plan.scratch_floats and slot not in slots
+                slots.add(slot)
+                touched[bb].append(cta)
+        assert np.all(walked == 1)
+        for bb, ctas in touched.items():  # the CTAs whose partials the last CTA adds
+            lo = bb * nblocks // plan.blocks_per_cta
+            hi = ((bb + 1) * nblocks - 1) // plan.blocks_per_cta
+            assert ctas == list(range(lo, hi + 1))
+        assert plan.scratch_floats % 4 == 0 and 4 * plan.scratch_floats <= tp.MAX_SMEM - 2048
+    assert np.all(writes == 1)
+
+
+def _tent_pair(iy, ix):
+    """transpose_2P's per-point sum as the kernel takes it (tent_pair): the
+    lanes floor(iy) and floor(iy) + 1 that lie in [0, 64), each
+    max(0, 1 - |lane - iy|) + 0 * ix, the first lane's term first."""
+    zero_x = 0.0 * ix
+    f0 = torch.floor(iy)
+    f1 = f0 + 1.0
+
+    def term(lane):
+        return torch.clamp_min(1.0 - torch.abs(lane - iy), 0.0) + zero_x
+
+    def inside(lane):
+        return (lane >= 0.0) & (lane < 64.0)
+
+    s = torch.where(inside(f0), term(f0), torch.zeros_like(iy))
+    return torch.where(inside(f1), s + term(f1), s)
+
+
+def test_transpose_2p_two_lanes_give_the_dense_sum_bit_for_bit():
+    rng = np.random.default_rng(3)
+    special = np.array([0.0, 1.0, 7.0, 62.0, 63.0, 64.0, 65.0, 63.25, 63.5, 63.999996,
+                        64.5, 100.0, 255.0, 0.25, 62.75, 31.0], np.float32)
+    iy = torch.from_numpy(np.concatenate(
+        [special, rng.uniform(0, 80, 4096).astype(np.float32)]))
+    ix = torch.from_numpy(rng.uniform(0, 255, iy.shape[0]).astype(np.float32))
+    lanes = torch.arange(64, dtype=torch.float32)
+    dense = (torch.clamp_min(1.0 - torch.abs(lanes - iy[:, None]), 0.0)
+             + 0.0 * ix[:, None]).sum(dim=-1)
+    got = _tent_pair(iy, ix)
+    assert torch.equal(got.view(torch.int32), dense.view(torch.int32))
+    assert float(got[5]) == 0.0 and float(got[4]) == 1.0 and float(got[7]) == 0.75
+    # The plain version sums the same per-point values.
+    ixy = torch.stack((iy, ix)).reshape(1, 1, 2, -1)
+    want = tp.splat_io_probe_reference("transpose_2P", iy.reshape(1, 1, -1), ix.reshape(1, 1, -1),
+                                       ixy, torch.zeros((1, 1, iy.shape[0], C), dtype=torch.bfloat16),
+                                       1, 1)[0, 0, 0]
+    torch.testing.assert_close(got.sum(), want, rtol=1e-6, atol=0)
