@@ -35,7 +35,26 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     inversion (15 crop augmentations: LPIPS on 64 + 64 images of 128^2
     per step, random VGG16 features from a seed) with PSNR/SSIM/IoU of
     the render against the target before and after.
- 5. The splat probes (P1, P2; csrc/splat_probes.cu): every P1 stage and P2
+ 5. The hybrid inversion (encoder first guess, PnP, refinement, metrics)
+    at invert.py's defaults on one card: first, at full width, the MiT-B5
+    bootstrap encoder (depths
+    (3, 6, 40, 3), random weights from a seed) on the card against the
+    same encoder on the CPU for one 128^2 image, and batched PnP on a
+    synthetic coordinate map of known poses (B=8, 128^2, the 11 focal
+    guesses of get_focal_guesses, compaction 8192: rotation error under
+    0.1 degree, focal exact). Then the two splat calls of one refinement
+    step from the first guess at B=8 (coarse and fine points, as the
+    render hands them over) against the plain version, folded into the
+    kernel line's errors. Then, with the splat kernel's launch count
+    set to 0, on B=8 targets rendered by the generator from seeded latents
+    at known poses, with their masks: invert.first_guess (encoder, PnP,
+    split ws), the eval metrics (PSNR/SSIM/IoU/LPIPS/rotation error), 30
+    'vgg' refinement steps (lr_gain_z 5), the metrics again, a render of
+    the result with SDF normals and the coordinate map, and the
+    InversionReport saved and loaded back; 60 splat launches expected
+    (2 a step, none in the no-grad renders). Prints encoder ms/batch,
+    PnP ms/batch, refine ms/step, eval ms/batch and peak memory.
+ 6. The splat probes (P1, P2; csrc/splat_probes.cu): every P1 stage and P2
     variant against its plain version at a small shape, every P1 stage at
     three more small shapes at the edges of its launch plan (8 row
     fragments, WX=48, a partial slab and a partly filled ring stage),
@@ -52,7 +71,7 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     alone, and, where one exists, one PyTorch call computing the same
     work (profile_splat.library_call). They run after the main path, so
     that no torch.profiler session precedes its timings.
- 6. The kernel summary line, the card line, and last the ok line.
+ 7. The kernel summary line, the card line, and last the ok line.
 
 Weights are random, drawn from fixed seeds. Needs one card; exits non-zero
 without one, or when the package is not next to this file.
@@ -80,6 +99,10 @@ RENDER_REL_TOL = 1e-4  # card vs CPU: other exp/log and summation orders
 WINDOW_PROBE_TOL = 1e-4
 IO_PROBE_TOL = 1e-5
 VGG_LOSS_TOL = 1e-4  # card vs CPU: cuDNN and CPU convolution sum orders
+ENCODER_TOL = 1e-4  # card vs CPU, relative to the largest output value
+HYBRID_BATCH = 8  # invert.py: batch_size // 4 of the default 32, one device
+HYBRID_STEPS = 30  # invert.py's steps at inv_gain_z 5
+PNP_ROT_TOL_DEG = 0.1
 # Lines of the TPU kernels the probe kernels replace.
 P1_KERNEL = "scripts/profile_splat.py:49"
 P2_KERNELS = {"empty": 51, "read_g": 71, "read_ixy_P1": 95, "read_ixy_2P": 119,
@@ -596,6 +619,242 @@ def phase_vgg_inversion(dev, model, splat3_backward, steps=5):
         raise AssertionError("non-finite image metrics")
 
 
+def synthetic_coordinate_maps(rng, batch, res, focal):
+    """Coordinate maps of known cameras: each pixel of a centred disc
+    (radius 0.45 of the image, ~10,300 pixels at 128^2, over the 8192-point
+    compaction budget) holds the world point on its pixel-centre ray at a
+    random depth in [2.5, 3.5]. Returns (coords [B, H, W, 3], masks
+    [B, H, W] in {0, 1}, cam2world [B, 4, 4]) as float32 numpy, in
+    pose/pnp.py's flipped-camera convention."""
+    jj, ii = np.meshgrid(np.arange(res) / res - 0.5, np.arange(res) / res - 0.5,
+                         indexing="ij")
+    mask = (ii**2 + jj**2 < 0.45**2).astype(np.float32)
+    coords = np.zeros((batch, res, res, 3), np.float32)
+    cam2world = []
+    for b in range(batch):
+        R, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+        if np.linalg.det(R) < 0:
+            R[:, 0] *= -1
+        t = np.array([0.1, -0.05, 3.0]) + rng.normal(0.0, 0.05, 3)
+        z = rng.uniform(2.5, 3.5, (res, res))
+        cam = np.stack((ii / focal * z, jj / focal * z, z), -1)
+        coords[b] = (cam - t) @ R  # R^T (cam - t)
+        w2c = np.eye(4)
+        w2c[:3, :3], w2c[:3, 3] = R, t
+        w2c = np.diag([1.0, -1.0, -1.0, 1.0]) @ w2c
+        cam2world.append(np.linalg.inv(w2c))
+    masks = np.broadcast_to(mask, (batch, res, res)).copy()
+    return coords, masks, np.stack(cam2world).astype(np.float32)
+
+
+def last_and_median_ms(fn, dev, iters=3):
+    """(fn's last result, median ms of `iters` calls) by bench.time_steps."""
+    from nerf_from_image_tpu_torch.bench import time_steps
+
+    out = []
+    times = time_steps(lambda: out.append(fn()), iters, dev)
+    return out[-1], float(np.median(times))
+
+
+def phase_encoder(dev):
+    """The full-width MiT-B5 bootstrap encoder on the card against the same
+    weights on the CPU, one 128^2 image; returns the encoder on the card."""
+    import torch
+
+    from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
+
+    encoder = BootstrapEncoder(512, device="cpu", generator=torch.Generator().manual_seed(9))
+    encoder.requires_grad_(False)
+    n_params = sum(p.numel() for p in encoder.parameters())
+    x = torch.tensor(np.random.default_rng(10).uniform(-1.0, 1.0, (1, RES, RES, 3)),
+                     dtype=torch.float32)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = encoder(x)
+    cpu_s = time.perf_counter() - t0
+    encoder.to(dev)
+    with torch.no_grad():
+        got = encoder(x.to(dev))
+    for name, a, b in zip(("coords", "mask", "w"), got, want):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"encoder on the card: non-finite {name}")
+        abs_err, rel = rel_err(a.cpu(), b)
+        log(f"encoder (MiT-B5, {n_params / 1e6:.1f} M parameters) card vs CPU: {name} "
+            f"{tuple(a.shape)} max abs err {abs_err:.3e}, max rel err {rel:.3e}")
+        if not rel < ENCODER_TOL:
+            raise AssertionError(f"encoder {name} differs between card and CPU: {rel}")
+    log(f"encoder on the CPU: {cpu_s:.1f} s for one image")
+    return encoder
+
+
+def phase_pnp(dev):
+    """Batched PnP at full size on synthetic maps of known poses: B=8,
+    128^2, the 11 default focal guesses, compaction 8192. Returns PnP
+    ms/batch (median of 3)."""
+    import torch
+
+    from nerf_from_image_tpu_torch.pose.pnp import estimate_poses_batch, get_focal_guesses
+    from nerf_from_image_tpu_torch.pose.pose import rotation_matrix_distance
+
+    guesses = get_focal_guesses(np.linspace(1.0, 2.0, 200))
+    if len(guesses) != 11:
+        raise AssertionError(f"expected 11 focal guesses, got {guesses}")
+    focal = float(np.float32(guesses[5]))
+    coords, masks, cam2world = synthetic_coordinate_maps(np.random.default_rng(11),
+                                                         HYBRID_BATCH, RES, focal)
+    coords, masks = torch.from_numpy(coords).to(dev), torch.from_numpy(masks).to(dev)
+    (cam, f, err), ms = last_and_median_ms(
+        lambda: estimate_poses_batch(coords, masks, guesses), dev)
+    rot = rotation_matrix_distance(cam, torch.from_numpy(cam2world).to(dev)).cpu()
+    f = f.cpu()
+    log(f"PnP (B={HYBRID_BATCH}, {RES}^2, {len(guesses)} focal guesses, "
+        f"{int(masks[0].sum())} foreground pixels, compaction 8192): {ms:.2f} ms/batch; "
+        f"rotation error max {float(rot.max()):.2e} deg, focal {f.tolist()} "
+        f"(true {focal}), reprojection error max {float(err.max()):.2e}")
+    if not (torch.isfinite(rot).all() and float(rot.max()) < PNP_ROT_TOL_DEG):
+        raise AssertionError(f"PnP missed the synthetic poses: {rot.tolist()} deg")
+    if not bool((f == focal).all()):
+        raise AssertionError(f"PnP picked the focals {f.tolist()}, expected {focal}")
+    return ms
+
+
+def phase_hybrid(dev, model, encoder, splat3_backward):
+    """The hybrid inversion at invert.py's defaults: first guess, eval,
+    30 'vgg' steps, eval, a normals and coordinates render, the report.
+    The splat calls of one refinement step from the first guess are held
+    to the plain version first. Returns the splat launches of the counted
+    path, the timings and those calls' K1 errors."""
+    import torch
+
+    from nerf_from_image_tpu_torch.engine import evaluate
+    from nerf_from_image_tpu_torch.engine.inversion import (
+        InversionConfig,
+        build_camera,
+        make_invert_fn,
+    )
+    from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
+    from nerf_from_image_tpu_torch.invert import first_guess
+    from nerf_from_image_tpu_torch.models.lpips import LPIPS
+    from nerf_from_image_tpu_torch.pose.pnp import estimate_poses_batch, get_focal_guesses
+    from nerf_from_image_tpu_torch.profile_step import bench_poses, recorded_splat_calls
+
+    B = HYBRID_BATCH
+    cfg = RenderConfig(resolution=RES, depth_samples_per_ray=SAMPLES, fine_sampling=True,
+                       scene_range=1.4, query_chunk=None, plane_splat=True)
+    inv_cfg = InversionConfig(steps=HYBRID_STEPS, loss="vgg", lr_gain_z=5.0)
+    lpips = LPIPS(torch.Generator().manual_seed(4), device=dev)
+    guesses = get_focal_guesses(np.linspace(1.0, 2.0, 200))
+    gen = torch.Generator(device=dev).manual_seed(12)
+    pose_gt = bench_poses(B, dev)
+    focal_gt = torch.full((B,), 1.2, device=dev)
+    with torch.no_grad():
+        z_true = torch.randn((B, model.latent_dim), generator=gen, device=dev)
+        target_out, _ = render(cfg, model, pose_gt, focal_gt, z_true, device=dev)
+        target = torch.cat((target_out.rgb, target_out.mask[..., None]), dim=-1)
+        z_avg = model.average_w(generator=gen)
+    del target_out
+    invert = make_invert_fn(inv_cfg, cfg, model, lpips=lpips, device=dev)
+    eval_fn = evaluate.make_eval_fn(inv_cfg, cfg, model, lpips, device=dev)
+    maps_cfg = RenderConfig(resolution=RES, depth_samples_per_ray=SAMPLES, fine_sampling=True,
+                            scene_range=1.4, query_chunk=None, plane_splat=True,
+                            compute_normals=True, compute_coords=True)
+
+    # The encoder and PnP alone, on these targets (timings; no splat).
+    with torch.no_grad():
+        (coords, mask, _), enc_ms = last_and_median_ms(lambda: encoder(target[..., :3]), dev)
+    _, pnp_ms = last_and_median_ms(lambda: estimate_poses_batch(coords, mask, guesses), dev)
+    log(f"encoder on the targets: {enc_ms:.1f} ms/batch (B={B}, {RES}^2); mask > 0.9 on "
+        f"{float((mask > 0.9).float().mean()) * 100:.2f}% of pixels; "
+        f"PnP {pnp_ms:.2f} ms/batch")
+    del coords, mask
+    # Warm-up: one refinement step (the first Adam step pays one-time
+    # set-up) and one eval. The step's two splat calls, from the first
+    # guess at B=8, are held to the plain version.
+    z0, p0 = first_guess(encoder, target, z_avg, inv_cfg, guesses, device=dev)
+    with recorded_splat_calls() as calls:
+        invert(z0, p0, target, n_steps=1)
+    if len(calls) != 2:
+        raise AssertionError(f"a refinement step made {len(calls)} splat calls, expected 2")
+    k1_errs = [k1_case(f"hybrid refinement step, call {i}", *call)[:2]
+               for i, call in enumerate(calls)]
+    del calls
+    eval_fn(z0, p0, target, pose_gt)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    splat3_backward.launches = 0  # this path starts here
+    t = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+
+    z0, p0 = first_guess(encoder, target, z_avg, inv_cfg, guesses, device=dev)
+    mark()
+    metrics0 = eval_fn(z0, p0, target, pose_gt)
+    mark()
+    z, p, losses = invert(z0, p0, target)
+    mark()
+    metrics = eval_fn(z, p, target, pose_gt)
+    mark()
+    with torch.no_grad():
+        cam, focal = build_camera(p, inv_cfg.camera_flipped)
+        maps, _ = render(maps_cfg, model, cam, focal, z * inv_cfg.lr_gain_z,
+                         force_no_cam_grad=True, device=dev)
+    mark()
+    launches = splat3_backward.launches
+    peak = torch.cuda.max_memory_allocated()
+    first_ms, eval0_ms, refine_ms, eval_ms, maps_ms = (
+        (b - a) * 1e3 for a, b in zip(t[:-1], t[1:]))
+
+    report = evaluate.InversionReport(
+        [0, HYBRID_STEPS], {"lpips": "(RANDOM-FEATURE — not metric grade)"})
+    for step, m, zz, pp in ((0, metrics0, z0, p0), (HYBRID_STEPS, metrics, z, p)):
+        report.add(step, m, {"ws": zz * inv_cfg.lr_gain_z, "R": pp.q, "s": pp.s, "t2": pp.t2})
+    prefix = os.path.join(REPO, "build", "hybrid_report", "report")
+    report.save(prefix)
+    loaded = evaluate.InversionReport.load(prefix)
+    if loaded.summary() != report.summary() or loaded.num_samples() != B:
+        raise AssertionError("the saved inversion report does not load back")
+    losses = losses.cpu().tolist()
+    log(f"hybrid inversion (B={B}, {RES}^2, {SAMPLES}+{SAMPLES} samples, vgg, "
+        f"{HYBRID_STEPS} steps, lr_gain_z {inv_cfg.lr_gain_z}): first guess "
+        f"{first_ms:.1f} ms/batch (focals {p0.z0.exp().add(1).div(2).cpu().tolist()}), "
+        f"refine {refine_ms / HYBRID_STEPS:.1f} ms/step, eval {(eval0_ms + eval_ms) / 2:.1f} "
+        f"ms/batch, normals and coordinates render {maps_ms:.1f} ms; peak memory "
+        f"{peak / 2**30:.2f} GiB; splat launches {launches}; losses {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f}")
+    for line in report.summary().splitlines():
+        log(f"  report {line.strip()}")
+    if launches != 2 * HYBRID_STEPS:
+        raise AssertionError(f"the hybrid path launched the splat kernel {launches} times, "
+                             f"expected {2 * HYBRID_STEPS}")
+    for step, m in ((0, metrics0), (HYBRID_STEPS, metrics)):
+        if set(m) != {"psnr", "ssim", "iou", "lpips", "rot_error"}:
+            raise AssertionError(f"step {step} metrics: {sorted(m)}")
+        for k, v in m.items():
+            if v.shape != (B,) or not torch.isfinite(v).all():
+                raise AssertionError(f"step {step} metric {k}: {v}")
+    if not (np.isfinite(losses).all() and torch.isfinite(z).all()
+            and all(torch.isfinite(x).all() for x in p if x is not None)):
+        raise AssertionError("the hybrid inversion returned non-finite values")
+    normal_len = maps.normals.norm(dim=-1)
+    for name in ("rgb", "mask", "normals", "semantics"):
+        if not torch.isfinite(getattr(maps, name)).all():
+            raise AssertionError(f"normals render: non-finite {name}")
+    if maps.normals.shape != (B, RES, RES, 3) or maps.semantics.shape != (B, RES, RES, 3):
+        raise AssertionError("normals render: wrong map shapes")
+    log(f"normals render: |normal| in [{float(normal_len.min()):.3f}, "
+        f"{float(normal_len.max()):.3f}], coordinate map in "
+        f"[{float(maps.semantics.min()):.3f}, {float(maps.semantics.max()):.3f}]")
+    return {"launches": launches, "encoder_ms": enc_ms, "pnp_ms": pnp_ms,
+            "first_guess_ms": first_ms, "refine_ms_per_step": refine_ms / HYBRID_STEPS,
+            "eval_ms": (eval0_ms + eval_ms) / 2, "peak_gib": peak / 2**30,
+            "k1_max_abs_err": max(a for a, _ in k1_errs),
+            "k1_max_rel_err": max(r for _, r in k1_errs)}
+
+
 def main() -> int:
     import torch
 
@@ -630,12 +889,25 @@ def main() -> int:
     phase_small_render(dev)
     phase_small_vgg(dev)
 
-    splat3_backward.launches = 0  # the main path starts here
+    splat3_backward.launches = 0  # the render and inversion path starts here
     phase_render(dev, model, "float32", splat3_backward)
     phase_render(dev, model, "bfloat16", splat3_backward)
     phase_inversion(dev, model, splat3_backward)
     phase_vgg_inversion(dev, model, splat3_backward)
-    summary["launches"] = splat3_backward.launches
+    paths = {"render_and_inversions": splat3_backward.launches}
+    torch.cuda.empty_cache()
+
+    encoder = phase_encoder(dev)
+    phase_pnp(dev)
+    hybrid = phase_hybrid(dev, model, encoder, splat3_backward)
+    paths["hybrid_inversion"] = hybrid.pop("launches")
+    summary["max_abs_err"] = max(summary["max_abs_err"], hybrid.pop("k1_max_abs_err"))
+    summary["max_rel_err"] = max(summary["max_rel_err"], hybrid.pop("k1_max_rel_err"))
+    summary["launches"] = sum(paths.values())
+    summary["launches_by_path"] = paths
+    summary["hybrid_inversion"] = hybrid
+    del encoder
+    torch.cuda.empty_cache()
 
     probes = phase_probes(dev)
 

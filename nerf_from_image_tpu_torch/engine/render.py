@@ -37,14 +37,18 @@ from nerf_from_image_tpu_torch.utils.device import check_on_device, resolve_devi
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Rendering configuration: the JAX package's fields that the port
-    implements so far (view directions, normals, semantic and coordinate
-    maps and ray sharding come with the drivers)."""
+    implements so far (still to come: view directions, semantic maps and
+    ray sharding)."""
 
     resolution: int = 128
     depth_samples_per_ray: int = 64
     fine_sampling: bool = True
     scene_range: float = 1.4
     white_background: bool = False
+    # SDF normal map (Generator.sample_field 'normals'); evaluation only.
+    compute_normals: bool = False
+    # Canonical coordinate map, returned in the semantics slot.
+    compute_coords: bool = False
     # Field queries run in chunks of this many points per batch element,
     # recomputed in the backward (torch.utils.checkpoint); None = one call.
     query_chunk: Optional[int] = 131072
@@ -95,8 +99,10 @@ def render_field(
     """Renders a radiance field along the given rays.
 
     field_fn(points [B, N, 3], outputs, splat_grid) -> {'sigma': [B, N],
-    'rgb': [B, N, C]}, where splat_grid is None or (img_shape, block_shape)
-    of the points' ray grid. Returns (composite maps [B, H, W, ...], aux).
+    'rgb': [B, N, C], ...}, where splat_grid is None or (img_shape,
+    block_shape) of the points' ray grid. Returns (composite maps [B, H, W,
+    ...], aux); with `compute_coords` the coordinate map is in the
+    semantics slot.
     """
     B, H, W, _ = ray_origins.shape
     S = config.depth_samples_per_ray
@@ -108,6 +114,11 @@ def render_field(
         query_points = query_points.detach()
         depth_values = depth_values.detach()
         ray_directions = ray_directions.detach()
+    requests = ("sigma", "rgb")
+    if config.compute_normals:
+        requests += ("normals",)
+    if config.compute_coords:
+        requests += ("coords",)
 
     def query(points):
         flat = points.reshape(B, -1, 3)
@@ -128,8 +139,8 @@ def render_field(
                 flat = torch.cat((flat, flat.new_zeros(B, pad, 3)), dim=1)
             outs = [
                 checkpoint(
-                    field_fn, flat[:, i * chunk : (i + 1) * chunk], ("sigma", "rgb"),
-                    grid, use_reentrant=False,
+                    field_fn, flat[:, i * chunk : (i + 1) * chunk], requests, grid,
+                    use_reentrant=False,
                 )
                 for i in range(n_chunks)
             ]
@@ -139,7 +150,7 @@ def render_field(
             }
         else:
             grid = ((H, W, s_pass), config.splat_block) if config.plane_splat else None
-            out = field_fn(flat, ("sigma", "rgb"), grid)
+            out = field_fn(flat, requests, grid)
         return {
             k: v.reshape(B, H, W, s_pass) if k == "sigma"
             else v.reshape(B, H, W, s_pass, -1)
@@ -147,7 +158,8 @@ def render_field(
         }
 
     coarse = query(query_points)
-    sigma, rgb = coarse["sigma"], coarse["rgb"]
+    sigma = coarse["sigma"]
+    channels = _channels(coarse)
 
     def fine_pass(sort_fine: bool):
         """EG3D-smoothed importance sampling + fine query."""
@@ -176,8 +188,8 @@ def render_field(
     if config.fine_sampling and config.merge_mode == "pairwise":
         z_samples, fine = fine_pass(sort_fine=True)
         out = compositing.composite_dual(
-            sigma, depth_values, {"rgb": rgb},
-            fine["sigma"], z_samples, {"rgb": fine["rgb"]},
+            sigma, depth_values, channels,
+            fine["sigma"], z_samples, _channels(fine),
             ray_directions, white_background=config.white_background,
         )
         return out, {"depth_values": depth_values}
@@ -193,15 +205,28 @@ def render_field(
         sigma = torch.take_along_dim(
             torch.cat((sigma, fine["sigma"]), dim=-1), order, dim=-1
         )
-        rgb = torch.take_along_dim(
-            torch.cat((rgb, fine["rgb"]), dim=-2), order[..., None], dim=-2
-        )
+        fine_channels = _channels(fine)
+        channels = {
+            k: torch.take_along_dim(torch.cat((v, fine_channels[k]), dim=-2),
+                                    order[..., None], dim=-2)
+            for k, v in channels.items()
+        }
 
     out = compositing.render_volume_density(
-        sigma, rgb, ray_directions, depth_values,
+        sigma, channels["rgb"], ray_directions, depth_values,
+        channels.get("normals"), channels.get("semantics"),
         white_background=config.white_background,
     )
     return out, {"depth_values": depth_values}
+
+
+def _channels(field: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The per-sample channels of a field query for compositing; the
+    coordinates take the semantics slot, as in the reference."""
+    channels = {k: v for k, v in field.items() if k != "sigma"}
+    if "coords" in channels:
+        channels["semantics"] = channels.pop("coords")
+    return channels
 
 
 def make_field_fn(model, planes, attention_values=None, splat: bool = False,

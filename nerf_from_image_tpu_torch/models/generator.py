@@ -1,11 +1,11 @@
 """Triplane SDF radiance-field generator with a StyleGAN2 backbone.
 
 Counterpart of nerf_from_image_tpu/models/generator.py: the unconditional
-generator's mapping, synthesis, texture palette and field queries.
-Attribute names are the reference state-dict keys. Not in this port yet:
-the conditional mapping (class labels, ResidualEncoder), view-direction
-mappers, SDF normals, and the raw-plane grid-sample decode that the
-double-backward regularizers use.
+generator's mapping, synthesis, texture palette and field queries,
+with SDF normals. Attribute names are the reference state-dict keys. Not
+in this port yet: the conditional mapping (class labels,
+ResidualEncoder), view-direction mappers, and the raw-plane grid-sample
+decode that the double-backward regularizers use.
 """
 
 from __future__ import annotations
@@ -284,22 +284,45 @@ class Generator(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         """Queries the radiance field at world-space points [B, N, 3].
 
-        outputs: subset of {'sigma', 'rgb', 'semantics', 'coords',
-        'sdf_distance'}. Out-of-box points get zero density. splat_grid:
-        (img_shape, block_shape) of the points' ray grid, for splat=True.
+        outputs: subset of {'sigma', 'rgb', 'normals', 'semantics',
+        'coords', 'sdf_distance'}. Out-of-box points get zero density.
+        splat_grid: (img_shape, block_shape) of the points' ray grid, for
+        splat=True.
+
+        'normals' are the normalized gradient of the SDF with respect to
+        the points, an evaluation output: one decode of detached planes
+        at points that require grad, and torch.autograd.grad of the
+        distance, which also gives the field values. With detached planes
+        the splat op's backward computes the coordinate gradient only, so
+        a normals render launches no plane-gradient kernel. Nothing is
+        differentiable through them: asked for with grad mode on and
+        planes or points that require grad, they raise.
         """
         for o in outputs:
-            if o == "normals":
-                raise NotImplementedError("SDF normals are not ported yet")
-            assert o in ("sigma", "rgb", "semantics", "coords", "sdf_distance"), o
+            assert o in ("sigma", "rgb", "normals", "semantics", "coords",
+                         "sdf_distance"), o
         res: Dict[str, torch.Tensor] = {}
         coords = points / self.scene_range
         out_of_box = (
             torch.any(torch.abs(coords) > 1.0, dim=-1).to(coords.dtype).detach()
         )
-        density_or_distance, features = self.decoder(
-            planes, coords, splat, table_dtype, splat_grid
-        )
+        if "normals" in outputs:
+            if not self.use_sdf:
+                raise ValueError("normals need an SDF generator (use_sdf=True)")
+            if torch.is_grad_enabled() and (planes.requires_grad or points.requires_grad):
+                raise ValueError("normals are an evaluation output: render them under "
+                                 "torch.no_grad() or with inputs that require no grad")
+            with torch.enable_grad():
+                pts = points.detach().requires_grad_(True)
+                decoded = self.decoder(planes.detach(), pts / self.scene_range,
+                                       splat, table_dtype, splat_grid)
+                (grad,) = torch.autograd.grad(decoded[0][..., -1].sum(), pts)
+            norm = torch.linalg.vector_norm(grad, dim=-1, keepdim=True)
+            res["normals"] = grad / torch.clamp_min(norm, 1e-12)
+            decoded = tuple(t.detach() for t in decoded)
+        else:
+            decoded = self.decoder(planes, coords, splat, table_dtype, splat_grid)
+        density_or_distance, features = decoded
         if "sdf_distance" in outputs:
             res["sdf_distance"] = density_or_distance
         if "sigma" in outputs:

@@ -4,13 +4,17 @@ Counterpart of nerf_from_image_tpu/pose/pose.py. The pose optimized during
 hybrid inversion is (z0 = log(2f - 1), t2 = screen translation, s = scale,
 q = quaternion (w, x, y, z)); `pose_to_matrix` / `matrix_to_pose` convert
 to and from scaled cam2world matrices [B, 4, 4] whose [3, 3] entry holds
-the inverse ortho scale.
+the inverse ortho scale. `matrix_to_conditioning_vector`,
+`perturb_poses` and `rotation_matrix_distance` serve the discriminator,
+the pose-robustness ablation and the inversion metrics.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -145,3 +149,68 @@ def matrix_to_pose(
     t2 = t3[:, :2] * s[:, None]
     q = matrix_to_quaternion(m_inv)
     return z0, t2, s, q
+
+
+def matrix_to_conditioning_vector(
+    tform_cam2world: torch.Tensor,
+    focal_length: Optional[torch.Tensor],
+    camera_flipped: bool,
+) -> torch.Tensor:
+    """View matrix [B, 4, 4] -> the 13-dim discriminator pose conditioning
+    (z0, t2, s, R flattened); z0 = log(focal), unshifted."""
+    m = tform_cam2world
+    if camera_flipped:
+        flip = torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=m.dtype, device=m.device)
+        m = torch.cat((m[:, :3, :] * flip[None, None, :], m[:, 3:, :]), dim=-2)
+    m_inv = invert_space(m)
+    rot_flat = m_inv[:, :3, :3].reshape(m.shape[0], 9)
+    t3 = -m_inv[:, :3, 3]
+
+    if focal_length is not None:
+        z0 = torch.log(focal_length)
+        s = 2.0 * focal_length / t3[:, 2]
+    else:
+        s = 1.0 / t3[:, 2]
+        z0 = torch.zeros_like(s)
+
+    t2 = t3[:, :2] * s[:, None]
+    return torch.cat((z0[:, None], t2, s[:, None], rot_flat), dim=-1)
+
+
+def rotation_matrix_distance(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Geodesic distance in degrees between rotations [B, 3, 3], or scaled
+    view matrices [B, 4, 4]; the cosine is clipped to [-1, 1] first."""
+    if p.shape[-1] == 4:
+        p = p[:, :3, :3] / p[:, 3:4, 3:4]
+        q = q[:, :3, :3] / q[:, 3:4, 3:4]
+    pqt = p @ q.transpose(-2, -1)
+    trace = pqt[:, 0, 0] + pqt[:, 1, 1] + pqt[:, 2, 2]
+    cos_d = torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0)
+    return torch.arccos(cos_d) / math.pi * 180.0
+
+
+def perturb_poses(tform_cam2world, avg_angle: float, *extra_args, seed=1234,
+                  target_distances=None):
+    """Pose-robustness ablation: swaps each pose for the dataset pose
+    nearest a random target angular distance from it, drawn in [0,
+    2 * avg_angle) by numpy's RandomState(seed). Host-side; poses [B, 4, 4]
+    or [B, 3, 3] (numpy, compared in f32). Returns (poses, *extra) as numpy,
+    each reordered by the same indices. `target_distances` [B] replaces the
+    random targets."""
+    poses = np.asarray(tform_cam2world)
+    p = torch.as_tensor(poses, dtype=torch.float32)
+    n, shape = len(poses), p.shape[1:]
+    dists_all = rotation_matrix_distance(
+        p[:, None].expand(n, n, *shape).reshape(n * n, *shape),
+        p[None].expand(n, n, *shape).reshape(n * n, *shape),
+    ).reshape(n, n).numpy()
+    if target_distances is None:
+        rng = np.random.RandomState(seed)
+        target_distances = rng.rand(n) * avg_angle * 2
+    indices = [int(np.abs(dists_all[i] - target_distances[i]).argmin())
+               for i in range(n)]
+    out_extra = [
+        (np.asarray(a)[indices].copy() if a is not None else None)
+        for a in extra_args
+    ]
+    return (poses[indices].copy(), *out_extra)

@@ -18,6 +18,7 @@ JSON line with the totals.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -72,10 +73,12 @@ def render_step(model, cfg, dev):
     return step
 
 
-def splat_calls(model, cfg, dev):
-    """The plane-gradient kernel calls of one bench render step: a list of
-    the arguments (coords3, g, H, W, img_shape, block_shape) of each
-    splat3_backward call, tensors cloned, in the order autograd made them."""
+@contextlib.contextmanager
+def recorded_splat_calls():
+    """Records the plane-gradient kernel calls made inside the block:
+    yields a list that receives the arguments (coords3, g, H, W,
+    img_shape, block_shape) of each splat3_backward call, tensors cloned,
+    in the order autograd made them."""
     calls = []
     original = splat.splat3_backward
 
@@ -87,10 +90,17 @@ def splat_calls(model, cfg, dev):
     record.launches = original.launches
     splat.splat3_backward = record
     try:
-        render_step(model, cfg, dev)()
+        yield calls
     finally:
         splat.splat3_backward = original
         original.launches = record.launches
+
+
+def splat_calls(model, cfg, dev):
+    """The plane-gradient kernel calls of one bench render step (see
+    recorded_splat_calls)."""
+    with recorded_splat_calls() as calls:
+        render_step(model, cfg, dev)()
     return calls
 
 

@@ -4,7 +4,8 @@ The JAX package's module trees mirror the reference PyTorch state-dict
 names and store torch layouts (OIHW convs, [out, in] linears), so a JAX
 variable tree becomes a state_dict for this port's modules by joining the
 tree paths with '.' and applying the same small rename table. No tensor
-is re-laid out.
+is re-laid out. The encoder's keys go through models/encoder.py's
+`encoder_rename`, the reference state-dict names.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+
+from nerf_from_image_tpu_torch.models.encoder import encoder_rename
 
 
 def _default_rename(path: str) -> str:
@@ -58,6 +61,24 @@ def generator_state_dict_from_jax(variables_np: Dict[str, Any]) -> Dict[str, tor
             if key in sd:
                 raise KeyError(f"two JAX variables map to the key {key!r}")
             sd[key] = torch.from_numpy(np.array(value))
+    return sd
+
+
+def encoder_state_dict_from_jax(variables_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX `BootstrapEncoder.init(...)` variable tree of numpy arrays ->
+    a state_dict for this port's models/encoder.py::BootstrapEncoder.
+
+    The keys are `encoder_rename` of the dot-joined JAX paths: the
+    reference encoder's state-dict keys, which are the port's parameter
+    names. Layouts are torch's on both sides (OIHW convs, [out, in]
+    linears). Load it with `load_state_dict(sd, strict=True)`.
+    """
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(variables_np["params"]):
+        key = encoder_rename(path)
+        if key in sd:
+            raise KeyError(f"two JAX variables map to the key {key!r}")
+        sd[key] = torch.from_numpy(np.array(value))
     return sd
 
 

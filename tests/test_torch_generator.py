@@ -100,19 +100,33 @@ def test_mapping_synthesis_and_texture():
     jm, variables, tm = tiny_pair()
     rng = np.random.default_rng(0)
     z = rng.standard_normal((2, 64)).astype(np.float32)
-    jws = jm.apply(variables, jnp.asarray(z), method="mapping")
+    ws = (rng.standard_normal((2, jm.num_ws, 64)) * 0.3).astype(np.float32)
+    # One jitted JAX program for the four references.
+    jws, jplanes, ja = jax.jit(lambda v, z, ws: (
+        jm.apply(v, z, method="mapping"),
+        {mode: jm.apply(v, ws, mode, None, method="synthesize") for mode in ("none", "const")},
+        jm.apply(v, ws, method="texture"),
+    ))(variables, jnp.asarray(z), jnp.asarray(ws))
     tws = tm.mapping(torch.from_numpy(z))
     assert _rel(tws, jws) < 1e-5
-    ws = (rng.standard_normal((2, jm.num_ws, 64)) * 0.3).astype(np.float32)
     for mode in ("none", "const"):
-        jp = jm.apply(variables, jnp.asarray(ws), mode, None, method="synthesize")
         tp = tm.synthesize(torch.from_numpy(ws), mode)
         assert tp.shape == (2, 3, 64, 64, 32)
-        assert _rel(tp, jp) < 1e-5, mode
-    ja = jm.apply(variables, jnp.asarray(ws), method="texture")
+        assert _rel(tp, jplanes[mode]) < 1e-5, mode
     assert _rel(tm.texture(torch.from_numpy(ws)), ja) < 1e-5
     avg = tm.average_w(n_samples=256)
     assert avg.shape == (1, jm.num_ws, 64) and torch.isfinite(avg).all()
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_planes_and_texture():
+    """The JAX planes and palette of the sample-field tests' ws (their
+    first draw from default_rng(1)), one jitted call shared by both
+    routes."""
+    jm, variables, _ = tiny_pair()
+    ws = (np.random.default_rng(1).standard_normal((1, jm.num_ws, 64)) * 0.3).astype(np.float32)
+    return jax.jit(lambda v, w: (jm.apply(v, w, method="synthesize"),
+                                 jm.apply(v, w, method="texture")))(variables, jnp.asarray(ws))
 
 
 @pytest.mark.parametrize("route", ["packed", "splat"])
@@ -120,8 +134,7 @@ def test_sample_field_values_and_gradients(route):
     jm, variables, tm = tiny_pair()
     rng = np.random.default_rng(1)
     ws = (rng.standard_normal((1, jm.num_ws, 64)) * 0.3).astype(np.float32)
-    planes = np.array(jm.apply(variables, jnp.asarray(ws), method="synthesize"))
-    attn = np.asarray(jm.apply(variables, jnp.asarray(ws), method="texture"))
+    planes, attn = (np.array(a) for a in _jax_planes_and_texture())
     points = rng.uniform(-1.6, 1.6, (1, 600, 3)).astype(np.float32)
     points[0, :3] = [[1.4, 0.2, -0.3], [-1.4, 1.4, 0.0], [0.5, -1.4, 1.4]]  # on the box
     outputs = ("sigma", "rgb", "semantics", "sdf_distance")

@@ -47,14 +47,16 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     names = _modules()
     for module in ("kernels.splat_probes", "profile_splat", "ops.grid_sample",
-                   "engine.augment", "models.lpips", "metrics.image", "bench"):
+                   "engine.augment", "models.lpips", "metrics.image", "bench", "pose.pnp",
+                   "models.segformer", "models.encoder", "engine.evaluate", "utils.fileio",
+                   "invert"):
         assert f"nerf_from_image_tpu_torch.{module}" in names, module
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER], cwd=REPO, capture_output=True,
         text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO},
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) == len(names) >= 22
+    assert int(out.stdout.strip().splitlines()[-1]) == len(names) >= 28
 
 
 def test_no_source_names_the_jax_package():
@@ -63,7 +65,7 @@ def test_no_source_names_the_jax_package():
     sources = [os.path.join(root, f) for root, _, files in os.walk(PKG_DIR)
                for f in files if f.endswith((".py", ".cu"))]
     sources.append(os.path.join(REPO, "chip_smoke.py"))
-    assert len(sources) >= 23
+    assert len(sources) >= 29
     for path in sources:
         with open(path) as fh:
             text = fh.read()
@@ -92,3 +94,20 @@ def test_entry_points_default_to_the_card():
     out, _ = render(RenderConfig(resolution=4, depth_samples_per_ray=4), model, cam,
                     focal, ws, device="cpu")
     assert out.rgb.shape == (1, 4, 4, 3)
+
+    from nerf_from_image_tpu_torch.engine.evaluate import make_eval_fn
+    from nerf_from_image_tpu_torch.invert import first_guess
+    from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
+    from nerf_from_image_tpu_torch.models.segformer import Segformer
+
+    small = dict(backbone_depths=(1, 1, 1, 1))
+    for build in (lambda: BootstrapEncoder(8, **small),
+                  lambda: Segformer(depths=(1, 1, 1, 1)),
+                  lambda: make_eval_fn(InversionConfig(), RenderConfig(), model, None),
+                  lambda: first_guess(None, torch.zeros(1, 4, 4, 3), ws, InversionConfig(),
+                                      pose=cam, focal=focal)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    z0, p0 = first_guess(None, torch.zeros(1, 4, 4, 3), ws, InversionConfig(), pose=cam,
+                         focal=focal, device="cpu")
+    assert z0.shape == (1, 1, 8) and p0.q.shape == (1, 4)

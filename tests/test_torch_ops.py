@@ -149,7 +149,8 @@ def test_composite_dual_matches_jax_and_sort_merge():
         return jnp.sum(out.rgb * wr) + jnp.sum(out.mask ** 2), out
 
     args = [jnp.asarray(x) for x in (sa, ca, sb, cb, dirs)]
-    (_, jout), jgrads = jax.value_and_grad(jfn, argnums=tuple(range(5)), has_aux=True)(*args)
+    (_, jout), jgrads = jax.jit(jax.value_and_grad(jfn, argnums=tuple(range(5)),
+                                                   has_aux=True))(*args)
 
     def tfn(merge):
         targs = [_t(x, True) for x in (sa, ca, sb, cb, dirs)]
@@ -188,7 +189,7 @@ def test_render_volume_density_weights_and_smoothing():
                                           normals, white_background=True)
         return jnp.sum(out.rgb) + jnp.sum(out.normals ** 2) + jnp.sum(out.mask), out
 
-    (_, jout), jg = jax.value_and_grad(jfn, argnums=(0, 1, 2), has_aux=True)(
+    (_, jout), jg = jax.jit(jax.value_and_grad(jfn, argnums=(0, 1, 2), has_aux=True))(
         jnp.asarray(sigma), jnp.asarray(rgb), jnp.asarray(normals))
     ts, tr, tn = _t(sigma, True), _t(rgb, True), _t(normals, True)
     tout = tcomp.render_volume_density(ts, tr, _t(dirs), _t(depth), tn, white_background=True)
@@ -258,8 +259,8 @@ def test_pose_round_trip_and_gradients(flipped, ortho):
         return jnp.sum(m * wm) + (jnp.sum(f) if f is not None else 0.0), m
 
     leaves = [t2, s, q] + ([] if z0 is None else [z0])
-    (_, jm), jg = jax.value_and_grad(jfn, argnums=tuple(range(len(leaves))), has_aux=True)(
-        *[jnp.asarray(x) for x in leaves])
+    (_, jm), jg = jax.jit(jax.value_and_grad(jfn, argnums=tuple(range(len(leaves))),
+                                             has_aux=True))(*[jnp.asarray(x) for x in leaves])
     tl = [_t(x, True) for x in leaves]
     tm, tf = tpose.pose_to_matrix(tl[3] if z0 is not None else None, tl[0], tl[1], tl[2], flipped)
     (torch.sum(tm * _t(wm)) + (torch.sum(tf) if tf is not None else 0.0)).backward()
