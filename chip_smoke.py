@@ -54,7 +54,23 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     InversionReport saved and loaded back; 60 splat launches expected
     (2 a step, none in the no-grad renders). Prints encoder ms/batch,
     PnP ms/batch, refine ms/step, eval ms/batch and peak memory.
- 6. The splat probes (P1, P2; csrc/splat_probes.cu): every P1 stage and P2
+ 6. The inversion driver end to end, as a user runs it:
+    nerf_from_image_tpu_torch.invert.main in this process, on reference
+    `.pth` checkpoints written from the bench generator
+    ({'model_ema': ...}) and the MiT-B5 encoder ({'model_coord': ...})
+    under build/invert_drive/, on the synthetic dataset (16 images of
+    128^2, batch 32 so 2 batches of 8, `--plane_splat true --query_chunk
+    0`, otherwise the defaults: 30 'vgg' steps, lr_gain_z 5, 64+64
+    samples). The splat kernel's launch count is set to 0 just before and
+    read just after: 2 a refinement step, 120 for the run, none in the
+    eval, TensorBoard or demo renders. The report must hold 16 finite
+    rows per metric at steps 0 and 30; prints s/img, ms per batch by part
+    (first guess, evals, refinement) and peak memory, all of this run,
+    which nothing records. Then one `--inv_export_demo_sample --inv_steps
+    5` run (10 launches) at the same B=8 shapes: the two splat calls of
+    its first refinement step are held to the plain version, and its PNG
+    must decode (zlib) to the grid of 8 rows of 6 panels of 128^2.
+ 7. The splat probes (P1, P2; csrc/splat_probes.cu): every P1 stage and P2
     variant against its plain version at a small shape, every P1 stage at
     three more small shapes at the edges of its launch plan (8 row
     fragments, WX=48, a partial slab and a partly filled ring stage),
@@ -71,7 +87,7 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     alone, and, where one exists, one PyTorch call computing the same
     work (profile_splat.library_call). They run after the main path, so
     that no torch.profiler session precedes its timings.
- 7. The kernel summary line, the card line, and last the ok line.
+ 8. The kernel summary line, the card line, and last the ok line.
 
 Weights are random, drawn from fixed seeds. Needs one card; exits non-zero
 without one, or when the package is not next to this file.
@@ -102,6 +118,7 @@ VGG_LOSS_TOL = 1e-4  # card vs CPU: cuDNN and CPU convolution sum orders
 ENCODER_TOL = 1e-4  # card vs CPU, relative to the largest output value
 HYBRID_BATCH = 8  # invert.py: batch_size // 4 of the default 32, one device
 HYBRID_STEPS = 30  # invert.py's steps at inv_gain_z 5
+DRIVE_IMAGES, DEMO_STEPS = 16, 5
 PNP_ROT_TOL_DEG = 0.1
 # Lines of the TPU kernels the probe kernels replace.
 P1_KERNEL = "scripts/profile_splat.py:49"
@@ -462,7 +479,9 @@ def phase_probes(dev):
         log(f"{case.name}: kernel {t['ms']:.4f} ms (old method {t['old_method_ms']:.4f}; "
             f"last device activity {t['kernel_ms']:.4f}; activities of a call "
             f"{len(t['activities'])}: {', '.join(n[:40] for n in t['activities'])}; "
-            f"{launches} launches), plain {plain_ms:.3f} ms, library {lib}"
+            f"{launches} launches; profiler sessions discarded "
+            f"{len(t['discarded_sessions'])}: {t['discarded_sessions']}), plain "
+            f"{plain_ms:.3f} ms, library {lib}"
             f"{'' if zero_ms is None else f', zero_ms {zero_ms:.4f}'}"
             f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bytes'] / 1e9:.4f} GB, "
             f"{b['ops'] / 1e9:.3f} GOP f32), {100 * b['bound_ms'] / t['ms']:.2f}% of bound"
@@ -480,6 +499,7 @@ def phase_probes(dev):
             "ms": t["ms"],
             "old_method_ms": t["old_method_ms"],
             "kernel_ms": t["kernel_ms"],
+            "discarded_sessions": t["discarded_sessions"],
             "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"],
@@ -855,6 +875,96 @@ def phase_hybrid(dev, model, encoder, splat3_backward):
             "k1_max_rel_err": max(r for _, r in k1_errs)}
 
 
+def phase_invert_driver(dev, model, encoder, splat3_backward):
+    """The inversion driver's main() on reference checkpoints of the bench
+    generator and the encoder: the counted run (launches, s/img, peak
+    memory) and its report, then a demo run, whose first refinement
+    step's K1 calls are held to the plain version, and its PNG. Returns
+    the launches by path, the timings and the K1 errors."""
+    import shutil
+
+    import torch
+
+    from nerf_from_image_tpu_torch import invert
+    from nerf_from_image_tpu_torch.profile_step import recorded_splat_calls
+    from nerf_from_image_tpu_torch.utils.images import read_png
+
+    root = os.path.join(REPO, "build", "invert_drive")
+    shutil.rmtree(root, ignore_errors=True)  # no report checkpoint to resume
+    os.makedirs(root)
+    gen_path = os.path.join(root, "g_synthetic.pth")
+    enc_path = os.path.join(root, "c_synthetic.pth")
+    torch.save({"model_ema": {k: v.cpu() for k, v in model.state_dict().items()}}, gen_path)
+    torch.save({"model_coord": {k: v.cpu() for k, v in encoder.state_dict().items()}},
+               enc_path)
+    argv = ["--dataset", "synthetic", "--resolution", str(RES), "--batch_size", "32",
+            "--max_images", str(DRIVE_IMAGES), "--plane_splat", "true", "--query_chunk", "0",
+            "--resume_from", gen_path, "--coord_resume_from", enc_path, "--root_path", root]
+    os.environ.pop("NFI_INCEPTION_WEIGHTS", None)  # FID is not ported
+    cwd = os.getcwd()
+    os.chdir(root)  # the demo composite goes to ./outputs/
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        splat3_backward.launches = 0  # this path starts here
+        t0 = time.perf_counter()
+        stats = invert.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = splat3_backward.launches
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+
+        # The demo run's first refinement step (B=8, the counted run's
+        # shapes) hands its two splat calls to the plain version; the
+        # recorder carries the count over to splat3_backward on exit.
+        splat3_backward.launches = 0  # the demo run's path starts here
+        with recorded_splat_calls(limit=2) as calls:
+            demo = invert.main(argv + ["--inv_export_demo_sample", "--inv_steps",
+                                       str(DEMO_STEPS)])
+        demo_launches = splat3_backward.launches
+        grid = read_png(os.path.join(root, "outputs", f"sample_synthetic_{DEMO_STEPS}it.png"))
+    finally:
+        os.chdir(cwd)
+    k1_errs = [k1_case(f"invert demo run, first refinement step, call {i}", *call)[:2]
+               for i, call in enumerate(calls)]
+    del calls
+
+    steps = HYBRID_STEPS
+    parts = {k: float(np.mean(v)) for k, v in stats["parts_ms"].items()}
+    log(f"invert driver ({DRIVE_IMAGES} synthetic images of {RES}^2, batches of "
+        f"{HYBRID_BATCH}, {steps} vgg steps, MiT-B5 first guess): {secs / DRIVE_IMAGES:.3f} "
+        f"s/img ({secs:.1f} s in main, {stats['seconds']:.1f} s in its batch loop); per "
+        f"batch: first guess {parts['first_guess']:.1f} ms, eval {parts['eval']:.1f} ms "
+        f"(twice), refine {parts['refine']:.1f} ms ({parts['refine'] / steps:.1f} ms/step); "
+        f"peak memory {peak / 2**30:.2f} GiB; splat launches {launches}; demo run "
+        f"({DEMO_STEPS} steps) {demo['seconds']:.1f} s, {demo_launches} launches, PNG "
+        f"{grid.shape}")
+    if launches != 2 * steps * (DRIVE_IMAGES // HYBRID_BATCH):
+        raise AssertionError(f"the driver launched the splat kernel {launches} times, "
+                             f"expected {2 * steps * (DRIVE_IMAGES // HYBRID_BATCH)}")
+    if demo_launches != 2 * DEMO_STEPS:
+        raise AssertionError(f"the demo run launched the splat kernel {demo_launches} times")
+    with np.load(os.path.join(stats["report_dir"], "report.npz")) as data:
+        report = {k: data[k] for k in data.files}
+    for step in (0, steps):
+        names = {k.split("/", 1)[1] for k in report if k.startswith(f"step{step}/")}
+        if not {"psnr", "ssim", "lpips", "rot_error", "ws", "R", "s", "t2"} <= names:
+            raise AssertionError(f"step {step} of the report holds {sorted(names)}")
+    for k, v in report.items():
+        if k.startswith("step") and (len(v) != DRIVE_IMAGES or not np.isfinite(v).all()):
+            raise AssertionError(f"report {k}: {v}")
+    log("  report " + ", ".join(f"{k} {float(np.mean(v)):.4f}" for k, v in sorted(report.items())
+                                if k.split("/")[-1] in ("psnr", "ssim", "lpips", "rot_error")))
+    if grid.shape != (HYBRID_BATCH * RES, 6 * RES, 3):
+        raise AssertionError(f"the demo PNG is {grid.shape}")
+    return {"launches": launches, "demo_launches": demo_launches,
+            "s_per_image": secs / DRIVE_IMAGES, "parts_ms": parts, "peak_gib": peak / 2**30,
+            "k1_max_abs_err": max(a for a, _ in k1_errs),
+            "k1_max_rel_err": max(r for _, r in k1_errs)}
+
+
 def main() -> int:
     import torch
 
@@ -903,9 +1013,17 @@ def main() -> int:
     paths["hybrid_inversion"] = hybrid.pop("launches")
     summary["max_abs_err"] = max(summary["max_abs_err"], hybrid.pop("k1_max_abs_err"))
     summary["max_rel_err"] = max(summary["max_rel_err"], hybrid.pop("k1_max_rel_err"))
+    torch.cuda.empty_cache()
+
+    driver = phase_invert_driver(dev, model, encoder, splat3_backward)
+    paths["invert_driver"] = driver.pop("launches")
+    paths["invert_demo"] = driver.pop("demo_launches")
+    summary["max_abs_err"] = max(summary["max_abs_err"], driver.pop("k1_max_abs_err"))
+    summary["max_rel_err"] = max(summary["max_rel_err"], driver.pop("k1_max_rel_err"))
     summary["launches"] = sum(paths.values())
     summary["launches_by_path"] = paths
     summary["hybrid_inversion"] = hybrid
+    summary["invert_driver"] = driver
     del encoder
     torch.cuda.empty_cache()
 

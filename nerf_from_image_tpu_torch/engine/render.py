@@ -37,14 +37,15 @@ from nerf_from_image_tpu_torch.utils.device import check_on_device, resolve_devi
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Rendering configuration: the JAX package's fields that the port
-    implements so far (still to come: view directions, semantic maps and
-    ray sharding)."""
+    implements so far (still to come: semantic maps and ray sharding)."""
 
     resolution: int = 128
     depth_samples_per_ray: int = 64
     fine_sampling: bool = True
     scene_range: float = 1.4
     white_background: bool = False
+    # Per-ray view-direction embedding (a use_viewdir generator, CARLA).
+    use_viewdir: bool = False
     # SDF normal map (Generator.sample_field 'normals'); evaluation only.
     compute_normals: bool = False
     # Canonical coordinate map, returned in the semantics slot.
@@ -95,14 +96,18 @@ def render_field(
     far: torch.Tensor,
     generator: Optional[torch.Generator] = None,
     force_no_cam_grad: bool = False,
+    viewdir_embedding: Optional[torch.Tensor] = None,
 ) -> Tuple[compositing.CompositeOutput, Dict[str, torch.Tensor]]:
     """Renders a radiance field along the given rays.
 
-    field_fn(points [B, N, 3], outputs, splat_grid) -> {'sigma': [B, N],
-    'rgb': [B, N, C], ...}, where splat_grid is None or (img_shape,
-    block_shape) of the points' ray grid. Returns (composite maps [B, H, W,
-    ...], aux); with `compute_coords` the coordinate map is in the
-    semantics slot.
+    field_fn(points [B, N, 3], outputs, splat_grid, viewdir_embedding) ->
+    {'sigma': [B, N], 'rgb': [B, N, C], ...}, where splat_grid is None or
+    (img_shape, block_shape) of the points' ray grid and
+    viewdir_embedding None or per point [B, N, F]: `viewdir_embedding`,
+    per ray [B, H * W, F], is expanded over each pass's samples so that
+    it chunks with the points. Returns (composite maps [B, H, W, ...],
+    aux); with `compute_coords` the coordinate map is in the semantics
+    slot.
     """
     B, H, W, _ = ray_origins.shape
     S = config.depth_samples_per_ray
@@ -125,6 +130,11 @@ def render_field(
         n_points = flat.shape[1]
         s_pass = points.shape[-2]
         row = W * s_pass  # points per image row, ray-major and sample-minor
+        emb = None
+        if viewdir_embedding is not None:
+            emb = viewdir_embedding[:, :, None, :].expand(
+                B, H * W, s_pass, viewdir_embedding.shape[-1]
+            ).reshape(B, n_points, -1)
         chunk = config.query_chunk
         if chunk and n_points > chunk:
             # Pad to a whole number of chunks so the memory bound holds for
@@ -137,9 +147,12 @@ def render_field(
                 grid = ((chunk // row, W, s_pass), config.splat_block)
             if pad:
                 flat = torch.cat((flat, flat.new_zeros(B, pad, 3)), dim=1)
+                if emb is not None:
+                    emb = torch.cat((emb, emb.new_zeros(B, pad, emb.shape[-1])), dim=1)
             outs = [
                 checkpoint(
                     field_fn, flat[:, i * chunk : (i + 1) * chunk], requests, grid,
+                    None if emb is None else emb[:, i * chunk : (i + 1) * chunk],
                     use_reentrant=False,
                 )
                 for i in range(n_chunks)
@@ -150,7 +163,7 @@ def render_field(
             }
         else:
             grid = ((H, W, s_pass), config.splat_block) if config.plane_splat else None
-            out = field_fn(flat, requests, grid)
+            out = field_fn(flat, requests, grid, emb)
         return {
             k: v.reshape(B, H, W, s_pass) if k == "sigma"
             else v.reshape(B, H, W, s_pass, -1)
@@ -232,14 +245,14 @@ def _channels(field: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 def make_field_fn(model, planes, attention_values=None, splat: bool = False,
                   table_dtype: Optional[str] = None):
     """Binds Generator.sample_field over fixed planes:
-    field_fn(points [B, N, 3], outputs, splat_grid=None) -> dict of field
-    values."""
+    field_fn(points [B, N, 3], outputs, splat_grid=None,
+    viewdir_embedding=None) -> dict of field values."""
 
-    def field_fn(points, outputs, splat_grid=None):
+    def field_fn(points, outputs, splat_grid=None, viewdir_embedding=None):
         return model.sample_field(
             planes, points, attention_values=attention_values,
-            outputs=outputs, splat=splat, table_dtype=table_dtype,
-            splat_grid=splat_grid,
+            viewdir_embedding=viewdir_embedding, outputs=outputs, splat=splat,
+            table_dtype=table_dtype, splat_grid=splat_grid,
         )
 
     return field_fn
@@ -292,6 +305,14 @@ def render(
 
     attention_values = model.texture(ws) if model.attention_values > 0 else None
 
+    viewdir_embedding = None
+    if config.use_viewdir:
+        # force_no_cam_grad detaches the view directions too (the
+        # reference detaches ray_directions before building them).
+        B, H, W, _ = ray_directions.shape
+        dirs = ray_directions.detach() if force_no_cam_grad else ray_directions
+        viewdir_embedding = model.viewdir_embedding(dirs.reshape(B, H * W, 1, 3))[:, :, 0, :]
+
     field_fn = make_field_fn(
         model, field_planes, attention_values, splat=config.plane_splat,
         table_dtype=config.plane_dtype,
@@ -299,6 +320,7 @@ def render(
     out, aux = render_field(
         config, field_fn, ray_origins, ray_directions, near, far,
         generator=generator, force_no_cam_grad=force_no_cam_grad,
+        viewdir_embedding=viewdir_embedding,
     )
     if config.zbuffer_depth:
         w2c = invert_space(tform_cam2world)

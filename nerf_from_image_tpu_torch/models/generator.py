@@ -2,9 +2,9 @@
 
 Counterpart of nerf_from_image_tpu/models/generator.py: the unconditional
 generator's mapping, synthesis, texture palette and field queries,
-with SDF normals. Attribute names are the reference state-dict keys. Not
-in this port yet: the conditional mapping (class labels,
-ResidualEncoder), view-direction mappers, and the raw-plane grid-sample
+with SDF normals and the view-direction branch (CARLA). Attribute names
+are the reference state-dict keys. Not in this port yet: the conditional
+mapping (class labels, ResidualEncoder) and the raw-plane grid-sample
 decode that the double-backward regularizers use.
 """
 
@@ -21,6 +21,7 @@ from nerf_from_image_tpu_torch.kernels.splat import triplane_sample_mean
 from nerf_from_image_tpu_torch.models.layers import (
     ConditionalLayerNorm,
     EqualizedLinear,
+    LayerNormAffine,
     leaky_relu,
 )
 from nerf_from_image_tpu_torch.models.stylegan import (
@@ -74,6 +75,52 @@ class AttentionMapper(nn.Module):
         x = leaky_relu(self.fc5(x))
         values = self.fc_values(x)
         return wide_sigmoid_rescaled(values.reshape(-1, self.num_values, 3))
+
+
+class ViewDirOutput(nn.Module):
+    """The zero-initialized output projection of the view-direction branch:
+    features [..., num_features] -> [..., output_size]."""
+
+    def __init__(self, num_features, output_size):
+        super().__init__()
+        self.num_features = num_features
+        self.weight = nn.Parameter(torch.zeros(output_size, num_features))
+        self.bias = nn.Parameter(torch.zeros(output_size))
+
+    def forward(self, x):
+        weight_gain = 1.0 / math.sqrt(self.num_features)
+        return x @ (self.weight * weight_gain).T + self.bias
+
+
+class ViewDirectionMapper(nn.Module):
+    """View direction [..., 3] -> a feature-space embedding [...,
+    num_features] (CARLA view dependence). `output` is the projection
+    that Generator.color_from_features applies after adding the embedding
+    to the decoder's features (the reference's viewdir_mapper.output)."""
+
+    def __init__(self, output_size, num_features=32, hidden_size=64):
+        super().__init__()
+        self.fc0 = EqualizedLinear(3, hidden_size)
+        for i in range(1, 5):
+            self.add_module(
+                f"fc{i}", EqualizedLinear(hidden_size, hidden_size, use_bias=False)
+            )
+            self.add_module(f"norm{i}", LayerNormAffine(hidden_size))
+        self.fc5 = EqualizedLinear(hidden_size, hidden_size)
+        self.fc6 = EqualizedLinear(hidden_size, num_features)
+        self.output = ViewDirOutput(num_features, output_size)
+
+    def forward(self, viewdir):
+        x = leaky_relu(self.fc0(viewdir))
+        for i in (1, 3):
+            shortcut = x
+            x = leaky_relu(getattr(self, f"norm{i}")(getattr(self, f"fc{i}")(x)))
+            x = leaky_relu(
+                getattr(self, f"norm{i + 1}")(getattr(self, f"fc{i + 1}")(x))
+            )
+            x = (x + shortcut) * _INV_SQRT2
+        x = leaky_relu(self.fc5(x))
+        return self.fc6(x)
 
 
 class TriplanarDecoder(nn.Module):
@@ -153,7 +200,7 @@ class Generator(nn.Module):
     """
 
     def __init__(self, latent_dim, scene_range, attention_values=0,
-                 use_sdf=True, w_dim=512, plane_channels=32,
+                 use_viewdir=False, use_sdf=True, w_dim=512, plane_channels=32,
                  synthesis_resolution=256, channel_base=32768, channel_max=512,
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -161,6 +208,7 @@ class Generator(nn.Module):
         self.latent_dim = latent_dim
         self.scene_range = scene_range
         self.attention_values = attention_values
+        self.use_viewdir = use_viewdir
         self.use_sdf = use_sdf
         self.w_dim = w_dim
         self.plane_channels = plane_channels
@@ -175,8 +223,13 @@ class Generator(nn.Module):
             img_channels=3 * plane_channels, channel_base=channel_base,
             channel_max=channel_max, use_noise=True,
         )
-        decoder_output_dim = attention_values if attention_values > 0 else 3
+        output_dim = attention_values if attention_values > 0 else 3
+        # With view directions the decoder emits 32 features and the
+        # branch's zero-initialized output projects them to the palette.
+        decoder_output_dim = 32 if use_viewdir else output_dim
         self.decoder = TriplanarDecoder(plane_channels, decoder_output_dim)
+        if use_viewdir:
+            self.viewdir_mapper = ViewDirectionMapper(output_dim)
         if use_sdf:
             self.beta = nn.Parameter(torch.empty(1))
             self.alpha = nn.Parameter(torch.empty(1))
@@ -237,6 +290,13 @@ class Generator(nn.Module):
         assert self.attention_values > 0
         return self.texture_mapper(ws[:, self.num_synthesis_ws])
 
+    def viewdir_embedding(self, viewdirs):
+        """View directions [..., 3] -> their embedding [..., 32]
+        (use_viewdir only)."""
+        if not self.use_viewdir:
+            raise ValueError("this generator has no view-direction branch")
+        return self.viewdir_mapper(viewdirs)
+
     # ---- field queries ---------------------------------------------------
 
     def density_from_distance(self, density_or_distance, out_of_box_mask):
@@ -253,8 +313,19 @@ class Generator(nn.Module):
         return F.softplus(density_pre) * (1.0 - out_of_box_mask)
 
     def color_from_features(self, features, attention_values=None,
-                            want_semantics=False):
-        """Decoder features [B, N, F] -> (rgb, semantics probs or None)."""
+                            viewdir_embedding=None, want_semantics=False):
+        """Decoder features [B, N, F] -> (rgb, semantics probs or None).
+
+        A view-direction generator needs `viewdir_embedding`, per point
+        [B, N, 32]: the features become output(leaky_relu(embedding +
+        features)).
+        """
+        if self.use_viewdir:
+            if viewdir_embedding is None or viewdir_embedding.shape[:-1] != features.shape[:-1]:
+                raise ValueError("a view-direction generator needs the per-point "
+                                 "viewdir embedding [B, N, F] (RenderConfig.use_viewdir)")
+            features = self.viewdir_mapper.output(
+                leaky_relu(viewdir_embedding + features))
         semantics = None
         if self.attention_values == 0:
             rgb = wide_sigmoid_rescaled(features)
@@ -277,6 +348,7 @@ class Generator(nn.Module):
         planes,
         points,
         attention_values=None,
+        viewdir_embedding=None,
         outputs: Sequence[str] = ("sigma", "rgb"),
         splat: bool = False,
         table_dtype: Optional[str] = None,
@@ -286,6 +358,7 @@ class Generator(nn.Module):
 
         outputs: subset of {'sigma', 'rgb', 'normals', 'semantics',
         'coords', 'sdf_distance'}. Out-of-box points get zero density.
+        viewdir_embedding: per point [B, N, 32], for use_viewdir.
         splat_grid: (img_shape, block_shape) of the points' ray grid, for
         splat=True.
 
@@ -331,7 +404,7 @@ class Generator(nn.Module):
             res["coords"] = points
         if "rgb" in outputs or "semantics" in outputs:
             rgb, semantics = self.color_from_features(
-                features, attention_values,
+                features, attention_values, viewdir_embedding,
                 want_semantics="semantics" in outputs,
             )
             if "rgb" in outputs:

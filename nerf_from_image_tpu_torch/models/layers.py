@@ -162,6 +162,21 @@ def normalize_latent(x, dim=-1, eps=1e-8):
     return x * torch.rsqrt(torch.mean(torch.square(x), dim=dim, keepdim=True) + eps)
 
 
+class LayerNormAffine(nn.Module):
+    """Plain LayerNorm over the last axis with a learnable affine (torch
+    names weight/bias; population variance, eps 1e-5)."""
+
+    def __init__(self, ch):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+
+    def forward(self, x):
+        mean = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+        return (x - mean) * torch.rsqrt(var + 1e-5) * self.weight + self.bias
+
+
 class ConditionalLayerNorm(nn.Module):
     """LayerNorm modulated by a latent (reference: models/generator.py:42-60)."""
 

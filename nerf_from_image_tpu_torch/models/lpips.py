@@ -135,3 +135,12 @@ def make_lpips(generator: Optional[torch.Generator] = None, device="cuda",
             "numbers are NOT metric grade (set NFI_LPIPS_WEIGHTS to an "
             "lpips-package VGG16 state dict for real values)", stacklevel=2)
     return model
+
+
+def lpips_metric_grade(weights_path: Optional[str] = None) -> bool:
+    """True when pretrained LPIPS weights are available (`weights_path` or
+    NFI_LPIPS_WEIGHTS names an existing file), so that reported 'lpips'
+    values compare with the reference's. Drivers stamp reports with a
+    RANDOM-FEATURE note when this is False."""
+    weights_path = weights_path or os.environ.get("NFI_LPIPS_WEIGHTS")
+    return bool(weights_path and os.path.exists(weights_path))

@@ -66,6 +66,9 @@ DEVICE_ITERS = 20
 FLUSH_BYTES = 256 << 20
 CLEAN_BYTES = 64 << 20
 SLEEP_CYCLES = 1 << 20
+# Profiler sessions call_activities takes before it gives up: on the card
+# a trace can lose a session's first device activities, up to all of them.
+ACTIVITY_SESSIONS = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,29 +314,35 @@ def _device_events(prof):
 
 def call_activities(fn, iters: int = 3):
     """The device activities (kernels, memsets) of `iters` calls of fn,
-    each after `_cold_preamble`, from torch.profiler: one list per call of
-    (name, duration in us), in stream order. A call's activities are those
-    after its preamble's spin kernel; every call must show the same names
-    (a trace may drop the first activity of a session, so the calls are
-    found from the spins and the last call's length, not from counts)."""
+    each after `_cold_preamble`, from torch.profiler: (calls, discarded).
+    `calls` holds one list per call of (name, duration in us), in stream
+    order. A call's activities are those after its preamble's spin kernel;
+    every call must show the same names (a trace may drop the first
+    activity of a session, so the calls are found from the spins and the
+    last call's length, not from counts). A session whose trace cannot be
+    split so is traced again, up to ACTIVITY_SESSIONS sessions in all;
+    `discarded` lists the activity names of each session set aside."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     buffers = _cold_buffers()  # made outside the trace
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            _cold_preamble(buffers, SLEEP_CYCLES)
-            fn()
-        torch.cuda.synchronize()
-    events = [(name, us) for _, name, us in _device_events(prof)]
-    spins = [i for i, (name, _) in enumerate(events) if "spin_kernel" in name]
-    last = events[spins[-1] + 1:] if spins else []
-    calls = [events[i + 1:i + 1 + len(last)] for i in spins[:-1]] + [last]
-    if len(spins) != iters or not last or any(
-            [n for n, _ in c] != [n for n, _ in last] for c in calls):
-        raise RuntimeError(f"call_activities: cannot split {len(events)} device "
-                           f"activities into {iters} calls: {[n for n, _ in events]}")
-    return calls
+    discarded = []
+    while len(discarded) < ACTIVITY_SESSIONS:
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                _cold_preamble(buffers, SLEEP_CYCLES)
+                fn()
+            torch.cuda.synchronize()
+        events = [(name, us) for _, name, us in _device_events(prof)]
+        spins = [i for i, (name, _) in enumerate(events) if "spin_kernel" in name]
+        last = events[spins[-1] + 1:] if spins else []
+        calls = [events[i + 1:i + 1 + len(last)] for i in spins[:-1]] + [last]
+        if len(spins) == iters and last and all(
+                [n for n, _ in c] == [n for n, _ in last] for c in calls):
+            return calls, discarded
+        discarded.append([n for n, _ in events])
+    raise RuntimeError(f"call_activities: cannot split the device activities of "
+                       f"{ACTIVITY_SESSIONS} sessions into {iters} calls: {discarded}")
 
 
 def zero_ms(inputs: "ProbeInputs") -> dict:
@@ -348,16 +357,18 @@ def time_case(case: Case, inputs: ProbeInputs) -> dict:
     """The wrapper's ms per call at the case's full shape, both ways, and
     its device activities: `ms` (device_ms), `old_method_ms` (cuda_ms over
     5 calls), `activities` (names of one call's, in stream order) and
-    `kernel_ms` (the median time of a call's last activity, the kernel)."""
+    `kernel_ms` (the median time of a call's last activity, the kernel)
+    and `discarded_sessions` (call_activities' sessions set aside)."""
     args = inputs.args(case)
     fn = kernel_fn(case)
     call = lambda: fn(*args)  # noqa: E731
-    acts = call_activities(call)
+    acts, discarded = call_activities(call)
     return {
         "ms": device_ms(call),
         "old_method_ms": cuda_ms(call, iters=5, warmup=2),
         "activities": [name for name, _ in acts[0]],
         "kernel_ms": float(np.median([a[-1][1] for a in acts])) / 1e3,
+        "discarded_sessions": discarded,
     }
 
 
@@ -435,7 +446,8 @@ def main() -> None:
         dense = ("" if b["dense_product_ms"] is None
                  else f"  dense {b['dense_product_ms']:8.4f} ms")
         print(f"  {case.name:48s} {t['ms']:9.4f} ms (old method {t['old_method_ms']:.4f}, "
-              f"kernel {t['kernel_ms']:.4f}, {len(t['activities'])} activities)  "
+              f"kernel {t['kernel_ms']:.4f}, {len(t['activities'])} activities, "
+              f"{len(t['discarded_sessions'])} profiler sessions discarded)  "
               f"bound {b['bound_ms']:8.4f} ms ({b['bound_by']})  "
               f"{100 * b['bound_ms'] / t['ms']:6.2f}% of bound{dense}{lib}", flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "cases": rows}))

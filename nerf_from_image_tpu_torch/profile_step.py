@@ -74,16 +74,18 @@ def render_step(model, cfg, dev):
 
 
 @contextlib.contextmanager
-def recorded_splat_calls():
+def recorded_splat_calls(limit=None):
     """Records the plane-gradient kernel calls made inside the block:
     yields a list that receives the arguments (coords3, g, H, W,
     img_shape, block_shape) of each splat3_backward call, tensors cloned,
-    in the order autograd made them."""
+    in the order autograd made them; with `limit`, of the first `limit`
+    calls only."""
     calls = []
     original = splat.splat3_backward
 
     def record(coords3, g, H, W, *grid):
-        calls.append((coords3.clone(), g.clone(), H, W) + grid)
+        if limit is None or len(calls) < limit:
+            calls.append((coords3.clone(), g.clone(), H, W) + grid)
         return original(coords3, g, H, W, *grid)
 
     # The wrapper counts its launches on the module's splat3_backward.

@@ -1,4 +1,4 @@
-"""Weights carried across from the JAX package.
+"""Weights carried across from the JAX package and from the reference.
 
 The JAX package's module trees mirror the reference PyTorch state-dict
 names and store torch layouts (OIHW convs, [out, in] linears), so a JAX
@@ -6,11 +6,18 @@ variable tree becomes a state_dict for this port's modules by joining the
 tree paths with '.' and applying the same small rename table. No tensor
 is re-laid out. The encoder's keys go through models/encoder.py's
 `encoder_rename`, the reference state-dict names.
+
+The port's parameter names therefore are the reference's, and the
+reference's released `.pth` checkpoints load directly
+(`load_reference_generator`, `load_reference_encoder`), under the rules
+of the JAX package's `state_dict_to_variables`: every parameter must be
+found, every checkpoint entry used (but the reference's `resample_filter`
+buffers), and a tensor is only reshaped where the sizes agree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -139,3 +146,68 @@ def lpips_state_to_state_dict(torch_state: Dict[str, Any]) -> Dict[str, torch.Te
             raise KeyError(f"LPIPS head lin{i} not found in the lpips state")
         sd[f"lins.{i}"] = v.float().reshape(-1)
     return sd
+
+
+# Reference checkpoints written by the JAX package's orbax checkpointer
+# need orbax, which this package does not import.
+_NO_ORBAX = ("{path} is not a .pth file, so it is an orbax checkpoint of the JAX "
+             "package; the port reads reference .pth checkpoints only (orbax "
+             "checkpoints come with ROADMAP.md section 1 item 8, scale and persistence)")
+
+
+def load_torch_checkpoint(path: str, key: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """A reference `.pth` checkpoint -> its state dict of CPU tensors.
+
+    The reference saves pickled dicts like {'model_ema': state_dict,
+    'model_coord': state_dict, ...}; `key` selects one entry. The file is
+    unpickled (`weights_only=False`, as the JAX package reads it): load
+    only checkpoints you trust, from the paths you pass.
+    """
+    if not path.endswith(".pth"):
+        raise NotImplementedError(_NO_ORBAX.format(path=path))
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if key is not None:
+        ckpt = ckpt[key]
+    return {k: torch.as_tensor(v).detach().cpu() for k, v in ckpt.items()}
+
+
+def reference_state_dict(module: torch.nn.Module,
+                         state_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A reference state dict -> a state_dict for `module`, strictly:
+    raises KeyError for a parameter the checkpoint lacks or an entry that
+    no parameter takes (the reference's `resample_filter` buffers are
+    skipped), ValueError for a size that differs; a tensor of the same
+    size in another shape is reshaped."""
+    want = module.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for key, ref in want.items():
+        if key not in state_dict:
+            raise KeyError(f"the checkpoint has no entry {key!r}")
+        val = torch.as_tensor(state_dict[key])
+        if tuple(val.shape) != tuple(ref.shape):
+            if val.numel() != ref.numel():
+                raise ValueError(f"shape mismatch for {key}: checkpoint "
+                                 f"{tuple(val.shape)} vs model {tuple(ref.shape)}")
+            val = val.reshape(ref.shape)
+        out[key] = val.to(ref.dtype)
+    leftovers = [k for k in state_dict
+                 if k not in want and not k.endswith("resample_filter")]
+    if leftovers:
+        raise KeyError(f"unused checkpoint entries ({len(leftovers)}): {leftovers[:8]}")
+    return out
+
+
+def load_reference_generator(model: torch.nn.Module, path: str) -> None:
+    """Loads the EMA generator (key 'model_ema') of a reference `.pth`
+    checkpoint into this package's Generator, in place."""
+    sd = load_torch_checkpoint(path, key="model_ema")
+    model.load_state_dict(reference_state_dict(model, sd), strict=True)
+
+
+def load_reference_encoder(encoder: torch.nn.Module, path: str) -> None:
+    """Loads the bootstrap encoder (key 'model_coord', DataParallel
+    'module.' prefixes dropped) of a reference `.pth` checkpoint into this
+    package's BootstrapEncoder, in place."""
+    sd = load_torch_checkpoint(path, key="model_coord")
+    sd = {k.replace("module.", ""): v for k, v in sd.items()}
+    encoder.load_state_dict(reference_state_dict(encoder, sd), strict=True)

@@ -56,6 +56,28 @@ def lpips_pair():
     return jm, variables, tm
 
 
+def seeded_generator_variables(jm, seed):
+    """The variable tree of a JAX generator from its abstract init, with
+    seeded values (no initialization to compile): weights N(0, 1), biases
+    N(0, 0.1), beta and alpha 1 + N(0, 0.1), noise strengths 0."""
+    shapes = jax.eval_shape(lambda k: jm.init(k, method="init_all"), jax.random.key(0))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        name = jax.tree_util.keystr(path)
+        if name.endswith("['bias']"):
+            v = rng.standard_normal(leaf.shape) * 0.1
+        elif name.endswith(("['beta']", "['alpha']")):
+            v = 1.0 + np.abs(rng.standard_normal(leaf.shape)) * 0.1
+        elif name.endswith("['noise_strength']"):
+            v = np.zeros(leaf.shape)
+        else:
+            v = rng.standard_normal(leaf.shape)
+        return v.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def release_memory():
     """Runs a module's tests on one torch thread, then hands back what they
@@ -129,27 +151,39 @@ def _jax_planes_and_texture():
                                  jm.apply(v, w, method="texture")))(variables, jnp.asarray(ws))
 
 
-@pytest.mark.parametrize("route", ["packed", "splat"])
-def test_sample_field_values_and_gradients(route):
-    jm, variables, tm = tiny_pair()
+_FIELD_OUTPUTS = ("sigma", "rgb", "semantics", "sdf_distance")
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_sample_field():
+    """The sample-field tests' inputs (planes, palette, points, cotangents)
+    and the JAX reference (field values, d planes, d points), computed
+    once for both routes."""
+    jm, variables, _ = tiny_pair()
     rng = np.random.default_rng(1)
-    ws = (rng.standard_normal((1, jm.num_ws, 64)) * 0.3).astype(np.float32)
+    rng.standard_normal((1, jm.num_ws, 64))  # the ws draw of _jax_planes_and_texture
     planes, attn = (np.array(a) for a in _jax_planes_and_texture())
     points = rng.uniform(-1.6, 1.6, (1, 600, 3)).astype(np.float32)
     points[0, :3] = [[1.4, 0.2, -0.3], [-1.4, 1.4, 0.0], [0.5, -1.4, 1.4]]  # on the box
-    outputs = ("sigma", "rgb", "semantics", "sdf_distance")
     cot = {k: rng.standard_normal(s).astype(np.float32)
            for k, s in (("sigma", (1, 600)), ("rgb", (1, 600, 3)),
                         ("semantics", (1, 600, 4)), ("sdf_distance", (1, 600, 1)))}
 
     def jfn(planes, points):
         res = jm.apply(variables, jax_pack_corners(planes), points, jnp.asarray(attn),
-                       outputs=outputs, method="sample_field")
-        return sum(jnp.sum(res[k] * cot[k]) for k in outputs), res
+                       outputs=_FIELD_OUTPUTS, method="sample_field")
+        return sum(jnp.sum(res[k] * cot[k]) for k in _FIELD_OUTPUTS), res
 
     (_, jres), (jgp, jgx) = jax.value_and_grad(jfn, argnums=(0, 1), has_aux=True)(
         jnp.asarray(planes), jnp.asarray(points))
+    return (planes, attn, points, cot), (jres, jgp, jgx)
 
+
+@pytest.mark.parametrize("route", ["packed", "splat"])
+def test_sample_field_values_and_gradients(route):
+    _, _, tm = tiny_pair()
+    (planes, attn, points, cot), (jres, jgp, jgx) = _jax_sample_field()
+    outputs = _FIELD_OUTPUTS
     tp = torch.from_numpy(planes).requires_grad_(True)
     tx = torch.from_numpy(points).requires_grad_(True)
     if route == "splat":

@@ -39,6 +39,33 @@ print(len(names))
 """
 
 
+# What the card machine lacks besides JAX: image I/O, TensorBoard, OpenCV
+# and detectron2. With those blocked too, the driver still imports, builds
+# the synthetic split, logs to a no-op TensorBoard sink and writes its demo
+# PNG (the standard library's zlib).
+_CARD_MACHINE = _BLOCKER.replace(
+    '"timing")', '"timing", "imageio", "PIL", "tensorboardX", "cv2", "detectron2")'
+).split("import nerf_from_image_tpu_torch as pkg")[0] + r"""
+import os, sys, tempfile
+import numpy as np
+import nerf_from_image_tpu_torch.invert
+from nerf_from_image_tpu_torch.data.loaders import load_dataset
+from nerf_from_image_tpu_torch.utils import images, tb
+
+config, train, _, _ = load_dataset("synthetic", "unused", resolution=16, max_images=3)
+assert train.images.shape == (3, 16, 16, 3), train.images.shape
+logger = tb.Logger(tempfile.mkdtemp())
+logger.images("img", train.images, 0)
+path = os.path.join(tempfile.mkdtemp(), "outputs", "grid.png")
+images.save_image_grid([[im, -im] for im in train.images], path)
+grid = images.read_png(path)
+assert grid.shape == (48, 32, 3), grid.shape
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print("ok")
+"""
+
+
 def _modules():
     return [m.name for m in pkgutil.walk_packages(
         nerf_from_image_tpu_torch.__path__, "nerf_from_image_tpu_torch.")]
@@ -49,7 +76,8 @@ def test_every_module_imports_with_jax_blocked():
     for module in ("kernels.splat_probes", "profile_splat", "ops.grid_sample",
                    "engine.augment", "models.lpips", "metrics.image", "bench", "pose.pnp",
                    "models.segformer", "models.encoder", "engine.evaluate", "utils.fileio",
-                   "invert"):
+                   "invert", "arguments", "data.loaders", "data.coco_mask", "utils.images",
+                   "utils.tb"):
         assert f"nerf_from_image_tpu_torch.{module}" in names, module
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER], cwd=REPO, capture_output=True,
@@ -57,6 +85,15 @@ def test_every_module_imports_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) == len(names) >= 28
+
+
+def test_driver_imports_and_writes_its_png_without_the_card_machines_missing_packages():
+    out = subprocess.run(
+        [sys.executable, "-c", _CARD_MACHINE], cwd=REPO, capture_output=True,
+        text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_no_source_names_the_jax_package():

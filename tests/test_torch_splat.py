@@ -69,11 +69,17 @@ def _jax_op(planes, coords3, gw, dt):
     return jnp.sum(e * gw), e
 
 
+@functools.lru_cache(maxsize=None)
+def _jitted(fn):
+    """One jitted value-and-grad per reference, so that the cases of one
+    shape and dtype share its compile."""
+    return jax.jit(jax.value_and_grad(fn, argnums=(0, 1), has_aux=True), static_argnums=3)
+
+
 def _jax(fn, planes, coords, gw, dt):
     """(samples [B, N, C], d planes, d coords) of sum(samples * gw)."""
-    (_, e), (gp, gc) = jax.jit(
-        jax.value_and_grad(fn, argnums=(0, 1), has_aux=True), static_argnums=3
-    )(jnp.asarray(planes), jnp.asarray(coords), jnp.asarray(gw), dt)
+    (_, e), (gp, gc) = _jitted(fn)(jnp.asarray(planes), jnp.asarray(coords),
+                                   jnp.asarray(gw), dt)
     return np.asarray(e), np.asarray(gp), np.asarray(gc)
 
 
