@@ -70,7 +70,24 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     5` run (10 launches) at the same B=8 shapes: the two splat calls of
     its first refinement step are held to the plain version, and its PNG
     must decode (zlib) to the grid of 8 rows of 6 panels of 128^2.
- 7. The splat probes (P1, P2; csrc/splat_probes.cu): every P1 stage and P2
+ 7. The driving evaluation and demo end to end (eval_driving.main and
+    demo_driving.main in this process, on phase 6's `.pth` checkpoints):
+    under build/driving_drive/, data/driving_fixtures.py writes a nuScenes
+    tree (1600x900 CAM_FRONT frames, 34,000-point LIDAR_TOP sweeps, 2 cars
+    of ~450 and ~60 px in 2 views, a person, Mask-RCNN masks in the
+    'labels' schema, the index) and a KITTI tree (1242x375, 120,000-point
+    scans, the first two cars of the package's index); the PNG reader is
+    timed on a frame. eval_driving on each tree at its defaults (128^2,
+    'vgg', checkpoints 0/20/50, known-K PnP from the MiT-B5 encoder,
+    composites; `--plane_splat true --query_chunk 0`), each path's splat
+    launches set to 0 just before and read just after: 2 x 50 x the
+    objects its report holds; the nuScenes run's first two splat calls
+    (B=1) held to the plain version. Every report row finite but the
+    KITTI random view's image columns (NaN), composites of 7 panels
+    (nuScenes) and 6 (KITTI). Then demo_driving on the first frame, 5
+    steps: 2 x 5 launches a car, a PNG of 6 panels a car. Prints
+    s/object, ms per part and peak memory.
+ 8. The splat probes (P1, P2; csrc/splat_probes.cu): every P1 stage and P2
     variant against its plain version at a small shape, every P1 stage at
     three more small shapes at the edges of its launch plan (8 row
     fragments, WX=48, a partial slab and a partly filled ring stage),
@@ -87,7 +104,7 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     alone, and, where one exists, one PyTorch call computing the same
     work (profile_splat.library_call). They run after the main path, so
     that no torch.profiler session precedes its timings.
- 8. The kernel summary line, the card line, and last the ok line.
+ 9. The kernel summary line, the card line, and last the ok line.
 
 Weights are random, drawn from fixed seeds. Needs one card; exits non-zero
 without one, or when the package is not next to this file.
@@ -119,6 +136,12 @@ ENCODER_TOL = 1e-4  # card vs CPU, relative to the largest output value
 HYBRID_BATCH = 8  # invert.py: batch_size // 4 of the default 32, one device
 HYBRID_STEPS = 30  # invert.py's steps at inv_gain_z 5
 DRIVE_IMAGES, DEMO_STEPS = 16, 5
+# eval_driving.py's checkpoints: 50 refinement steps an object.
+DRIVING_CHECKPOINTS = {0, 20, 50}
+DRIVING_STEPS = max(DRIVING_CHECKPOINTS)
+# Phase 7's trees at the datasets' camera sizes (data/driving_fixtures.py).
+NUSC_SIZE, KITTI_SIZE = (1600, 900), (1242, 375)
+NUSC_LIDAR_POINTS, KITTI_LIDAR_POINTS = 34000, 120000
 PNP_ROT_TOL_DEG = 0.1
 # Lines of the TPU kernels the probe kernels replace.
 P1_KERNEL = "scripts/profile_splat.py:49"
@@ -965,6 +988,192 @@ def phase_invert_driver(dev, model, encoder, splat3_backward):
             "k1_max_rel_err": max(r for _, r in k1_errs)}
 
 
+def _finite_rows(report, n, nan_by_design=()):
+    """Every stepN/ metric of a report holds n rows, finite but for the
+    metrics named in nan_by_design, which are NaN."""
+    for k, v in report.items():
+        if not k.startswith("step"):
+            continue
+        name = k.split("/", 1)[1]
+        want = np.isnan(v).all() if name in nan_by_design else np.isfinite(v).all()
+        if v.shape != (n,) or not want:
+            raise AssertionError(f"report {k}: {v}")
+
+
+def phase_driving(gen_path, enc_path, splat3_backward):
+    """The driving evaluation and demo end to end: eval_driving.main on a
+    nuScenes and a KITTI tree (data/driving_fixtures.py) and demo_driving.main
+    on one nuScenes frame, on the `.pth` checkpoints of phase 6. Each path's
+    splat launch count is set to 0 just before its run and read just after
+    (2 a refinement step); the nuScenes run's first two calls are held to
+    the plain version. s/object is the object loop's time over its objects;
+    main()'s set-up (checkpoint reads, encoder, LPIPS) is reported apart.
+    Returns the launches by path, the timings, the K1 errors and the PNG
+    reader's times."""
+    import shutil
+
+    import torch
+
+    from nerf_from_image_tpu_torch import demo_driving, eval_driving
+    from nerf_from_image_tpu_torch.data import driving_fixtures
+    from nerf_from_image_tpu_torch.profile_step import recorded_splat_calls
+    from nerf_from_image_tpu_torch.utils.images import read_png
+
+    root = os.path.join(REPO, "build", "driving_drive")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    nusc = driving_fixtures.build_nusc_tree(os.path.join(root, "nusc"), *NUSC_SIZE,
+                                            lidar_points=NUSC_LIDAR_POINTS,
+                                            label_schema="labels")
+    kitti = driving_fixtures.build_kitti_tree(os.path.join(root, "kitti"), width=KITTI_SIZE[0],
+                                              height=KITTI_SIZE[1],
+                                              lidar_points=KITTI_LIDAR_POINTS)
+    log(f"driving trees: nuScenes {NUSC_SIZE[0]}x{NUSC_SIZE[1]}, {len(nusc['annotations'])} "
+        f"annotations, {NUSC_LIDAR_POINTS} LiDAR points a sweep; KITTI {KITTI_SIZE[0]}x"
+        f"{KITTI_SIZE[1]}, frame {kitti['frame']} objects {kitti['objects']}, "
+        f"{KITTI_LIDAR_POINTS} points; written in {time.perf_counter() - t0:.1f} s")
+
+    # The PNG reader on a frame of the nuScenes camera's size (host time):
+    # filter 0 (this package's writer) and Paeth/Average rows (the
+    # anti-diagonal decode).
+    frame = os.path.join(root, "nusc", "samples", "CAM_FRONT", nusc["frames"][0])
+    img = read_png(frame)
+    filtered = os.path.join(root, "filtered.png")
+    driving_fixtures.write_filtered_png(filtered, img, np.arange(img.shape[0]) % 5)
+    png_ms = {}
+    for name, path in (("filter 0", frame), ("all five filters", filtered)):
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            got = read_png(path)
+            times.append((time.perf_counter() - t) * 1e3)
+        if not np.array_equal(got, img):
+            raise AssertionError(f"the PNG reader decoded {name} wrongly")
+        png_ms[name] = float(np.median(times))
+    log(f"PNG reader, {img.shape[1]}x{img.shape[0]} RGB on this host: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in png_ms.items()))
+
+    common = ["--resolution", str(RES), "--plane_splat", "true", "--query_chunk", "0",
+              "--resume_from", gen_path, "--coord_resume_from", enc_path]
+    runs = {
+        "eval_driving_nusc": ["--dataset", "nusc", "--nusc_data_dir", os.path.join(root, "nusc"),
+                              "--driving_index_file", nusc["index_file"]],
+        "eval_driving_kitti": ["--dataset", "kitti", "--kitti_data_dir",
+                               os.path.join(root, "kitti"), "--max_num_samples", "2"],
+    }
+    os.environ.pop("NFI_INCEPTION_WEIGHTS", None)
+    cwd = os.getcwd()
+    os.chdir(root)  # composites go to ./outputs/
+    out, k1_errs = {}, []
+    try:
+        for path, argv in runs.items():
+            argv = argv + common + ["--root_path", root, "--inv_export_demo_sample"]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            splat3_backward.launches = 0  # this path starts here
+            t = time.perf_counter()
+            if path == "eval_driving_nusc":
+                # The first refinement step's two calls (B=1), cloned for
+                # the check below.
+                with recorded_splat_calls(limit=2) as calls:
+                    stats = eval_driving.main(argv)
+            else:
+                stats = eval_driving.main(argv)
+            torch.cuda.synchronize()
+            out[path] = {"seconds": time.perf_counter() - t, "stats": stats,
+                         "launches": splat3_backward.launches,
+                         "peak": torch.cuda.max_memory_allocated()}
+            torch.cuda.empty_cache()
+        splat3_backward.launches = 0  # the demo's path starts here
+        t = time.perf_counter()
+        demo = demo_driving.main(["--dataset", "nusc", "--nusc_data_dir",
+                                  os.path.join(root, "nusc"), "--inv_manual_input_path",
+                                  nusc["frames"][0]] + common + ["--inv_steps", str(DEMO_STEPS)])
+        torch.cuda.synchronize()
+        demo_secs, demo_launches = time.perf_counter() - t, splat3_backward.launches
+        demo_png = read_png(os.path.join(root, demo["output"]))
+    finally:
+        os.chdir(cwd)
+    for i, call in enumerate(calls):
+        k1_errs.append(k1_case(f"driving eval (nuScenes), first refinement step, call {i}",
+                               *call)[:2])
+    del calls
+    if len(k1_errs) != 2:
+        raise AssertionError(f"recorded {len(k1_errs)} splat calls of the nuScenes run")
+
+    results = {"launches": {}, "png_reader_ms": png_ms}
+    for path, run in out.items():
+        stats, dataset = run["stats"], path.rsplit("_", 1)[1]
+        n = stats["objects"]
+        with np.load(os.path.join(stats["report_dir"], "report.npz")) as data:
+            report = {k: data[k] for k in data.files}
+        names = {k.split("/", 1)[1] for k in report if k.startswith("step")}
+        want = {"psnr", "ssim", "lpips", "rot_error", "trans_error", "depth_error",
+                "psnr_random", "ssim_random", "lpips_random", "depth_error_random"}
+        checkpoints = {int(k[len("step"):].split("/")[0]) for k in report if k.startswith("step")}
+        if names != want or checkpoints != DRIVING_CHECKPOINTS:
+            raise AssertionError(f"{path}: report keys {sorted(report)}")
+        nan = ("psnr_random", "ssim_random", "lpips_random") if dataset == "kitti" else ()
+        _finite_rows(report, n, nan)
+        if n == 0 or run["launches"] != 2 * DRIVING_STEPS * n:
+            raise AssertionError(f"{path}: {run['launches']} splat launches for {n} objects, "
+                                 f"expected {2 * DRIVING_STEPS * n}")
+        panels = 7 if dataset == "nusc" else 6
+        for i in range(n):
+            png = read_png(os.path.join(root, "outputs", f"eval_{dataset}",
+                                        f"demo_obj{i}_{DRIVING_STEPS}it.png"))
+            if png.shape != (RES, panels * RES, 3):
+                raise AssertionError(f"{path}: composite {i} is {png.shape}")
+        parts = stats["parts_ms"]
+        refine_ms_step = float(np.sum(parts["refine"])) / (n * DRIVING_STEPS)
+        timing = {"s_per_object": stats["seconds"] / n, "main_s": run["seconds"],
+                  "loop_s": stats["seconds"], "setup_s": run["seconds"] - stats["seconds"],
+                  "data_ms": float(np.mean(parts["data"])),
+                  "first_guess_ms": float(np.mean(parts["first_guess"])),
+                  "eval_ms": float(np.mean(parts["eval"])),
+                  "refine_ms_per_step": refine_ms_step, "peak_gib": run["peak"] / 2**30,
+                  "objects": n}
+        results[path] = timing
+        results["launches"][path] = run["launches"]
+        log(f"{path} ({n} objects, {RES}^2, vgg, {DRIVING_STEPS} steps (checkpoints "
+            f"{sorted(checkpoints)}), MiT-B5 first guess, known-K PnP): "
+            f"{timing['s_per_object']:.3f} s/object over its loop of {stats['seconds']:.1f} s; "
+            f"set-up {timing['setup_s']:.1f} s ({run['seconds']:.1f} s in main); per "
+            f"object: data {timing['data_ms']:.1f} ms, first guess "
+            f"{timing['first_guess_ms']:.1f} ms, eval {timing['eval_ms']:.1f} ms per "
+            f"checkpoint, refine {refine_ms_step:.1f} ms/step; peak memory "
+            f"{timing['peak_gib']:.2f} GiB"
+            + (" (with the two recorded splat calls' clones)" if dataset == "nusc" else "")
+            + f"; splat launches {run['launches']}")
+        log("  report " + ", ".join(
+            f"{k} {float(np.mean(v)):.4f}" for k, v in sorted(report.items())
+            if k.startswith(f"step{DRIVING_STEPS}/")))
+        if dataset == "kitti":
+            # From a random encoder's PnP pose the random view's render may
+            # cover no reprojected LiDAR point: such a row is 0 and compares
+            # nothing (the CPU parity test covers it from the true pose).
+            empty = sum(int(np.sum(v == 0)) for k, v in report.items()
+                        if k.endswith("/depth_error_random"))
+            timing["random_depth_empty_rows"] = empty
+            log(f"  random view: {empty} of {len(DRIVING_CHECKPOINTS) * n} depth_error_random "
+                f"rows are 0 (no reprojected LiDAR point under the render)")
+    n_cars = demo["cars"]
+    if demo_launches != 2 * DEMO_STEPS * n_cars:
+        raise AssertionError(f"the driving demo launched the splat kernel {demo_launches} "
+                             f"times for {n_cars} cars")
+    if demo_png.shape != (n_cars * RES, 6 * RES, 3):
+        raise AssertionError(f"the driving demo's PNG is {demo_png.shape}")
+    results["launches"]["driving_demo"] = demo_launches
+    results["driving_demo"] = {"s_per_car": demo_secs / n_cars, "cars": n_cars}
+    log(f"driving demo ({n_cars} cars, {DEMO_STEPS} steps): {demo_secs:.1f} s, "
+        f"{demo_launches} splat launches, PNG {demo_png.shape}")
+    results["k1_max_abs_err"] = max(a for a, _ in k1_errs)
+    results["k1_max_rel_err"] = max(r for _, r in k1_errs)
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1020,11 +1229,20 @@ def main() -> int:
     paths["invert_demo"] = driver.pop("demo_launches")
     summary["max_abs_err"] = max(summary["max_abs_err"], driver.pop("k1_max_abs_err"))
     summary["max_rel_err"] = max(summary["max_rel_err"], driver.pop("k1_max_rel_err"))
+    del encoder
+    torch.cuda.empty_cache()
+
+    drive_root = os.path.join(REPO, "build", "invert_drive")
+    driving = phase_driving(os.path.join(drive_root, "g_synthetic.pth"),
+                            os.path.join(drive_root, "c_synthetic.pth"), splat3_backward)
+    paths.update(driving.pop("launches"))
+    summary["max_abs_err"] = max(summary["max_abs_err"], driving.pop("k1_max_abs_err"))
+    summary["max_rel_err"] = max(summary["max_rel_err"], driving.pop("k1_max_rel_err"))
     summary["launches"] = sum(paths.values())
     summary["launches_by_path"] = paths
     summary["hybrid_inversion"] = hybrid
     summary["invert_driver"] = driver
-    del encoder
+    summary["driving"] = driving
     torch.cuda.empty_cache()
 
     probes = phase_probes(dev)

@@ -22,7 +22,7 @@ def load_carla_split(
     highres: bool = False,
     max_images: Optional[int] = None,
 ) -> DatasetSplit:
-    import imageio.v2 as imageio
+    from nerf_from_image_tpu_torch.utils.images import read_image
 
     img_paths = sorted(glob.glob(os.path.join(dataset_path, "*.png")))
     if max_images is not None:
@@ -49,7 +49,7 @@ def load_carla_split(
     images_hr = []
     original_res = None
     for p in img_paths:
-        img = imageio.imread(p)[..., :3].astype(np.float32) / 255 * 2 - 1
+        img = read_image(p)[..., :3].astype(np.float32) / 255 * 2 - 1
         if original_res is None:
             original_res = img.shape[0]
         images_hr.append(image_ops.resize_to(img, (target, target)))

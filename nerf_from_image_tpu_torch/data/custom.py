@@ -7,7 +7,7 @@ CUB. The crop / square-bbox / mirror / normalized-bbox pipeline and the
 pose-matrix assembly (perspective f=1+exp(z0) remap, CUB ortho scale with
 z-offset 10, y/z flip, inversion to cam2world) are preserved exactly.
 
-Pure numpy + cv2; COCO masks decode through data/coco_mask (no pycocotools
+Pure numpy; COCO masks decode through data/coco_mask (no pycocotools
 dependency). torch is only needed to read the reference's .bin pose files
 (torch.load) — a numpy fallback handles .npz exports of the same content.
 This package's copy of the JAX package's data/custom.py.
@@ -45,9 +45,9 @@ def quaternion_to_matrix4(quaternion: np.ndarray) -> np.ndarray:
 
 
 def _read_image(path: str) -> np.ndarray:
-    import imageio.v2 as imageio
+    from nerf_from_image_tpu_torch.utils.images import read_image
 
-    img = imageio.imread(path) / 255.0
+    img = read_image(path) / 255.0
     if img.ndim == 2:
         img = np.repeat(img[..., None], 3, axis=2)
     return img[..., :3]

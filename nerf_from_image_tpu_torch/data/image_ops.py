@@ -1,41 +1,112 @@
-"""Host-side image utilities for the data layer (numpy/cv2).
+"""Host-side image utilities for the data layer (numpy).
 
 Mirrors the reference's crop/scale/mirror pipeline helpers (reference:
 data/datasets.py:152-243): INTER_AREA resize, padded crop with background
 fill, square-bbox expansion, bbox perturbation and the normalized-bbox
 computation used by evaluation rendering. This package's copy of the JAX
-package's data/image_ops.py; cv2 is imported by the resizes alone.
+package's data/image_ops.py, with cv2's INTER_AREA, INTER_LINEAR and
+INTER_NEAREST resizes written out in numpy, so the data layer runs
+without OpenCV.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
 
 
+def _linear_taps(n_src: int, n_dst: int, area: bool):
+    """cv2's two-tap coefficients along one axis (imgproc/src/resize.cpp,
+    the generic path): per output index, two source indices and their
+    float32 weights. INTER_LINEAR samples at pixel centres; INTER_AREA's
+    enlargement keeps each output step inside one source pixel but at its
+    far edge."""
+    inv_scale = n_dst / n_src
+    scale = 1.0 / inv_scale
+    d = np.arange(n_dst, dtype=np.float64)
+    if area:
+        s = np.floor(d * scale).astype(np.int64)
+        f = ((d + 1) - (s + 1) * inv_scale).astype(np.float32)
+        f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    else:
+        x = (d + 0.5) * scale - 0.5
+        s = np.floor(x).astype(np.int64)
+        f = (x - s).astype(np.float32)
+    f[(s < 0) | (s >= n_src - 1)] = 0  # the edges repeat their pixel
+    s = np.clip(s, 0, n_src - 1)
+    return s, np.minimum(s + 1, n_src - 1), np.float32(1) - f, f
+
+
+def _area_weights(n_src: int, n_dst: int) -> np.ndarray:
+    """INTER_AREA's shrink along one axis as a dense [n_dst, n_src] matrix
+    of cv2's float32 coverage weights (resize.cpp computeResizeAreaTab): an
+    integer factor is a block mean, any other takes fractional edges."""
+    scale = 1.0 / (n_dst / n_src)
+    w = np.zeros((n_dst, n_src), np.float32)
+    for dx in range(n_dst):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, n_src - fsx1)
+        sx2 = min(math.floor(fsx2), n_src - 1)
+        sx1 = min(math.ceil(fsx1), sx2)
+        if sx1 - fsx1 > 1e-3:
+            w[dx, sx1 - 1] += np.float32((sx1 - fsx1) / cell)
+        w[dx, sx1:sx2] += np.float32(1.0 / cell)
+        if fsx2 - sx2 > 1e-3:
+            w[dx, sx2] += np.float32(min(fsx2 - sx2, 1.0, cell) / cell)
+    return w
+
+
+def _check_float(img: np.ndarray) -> None:
+    if img.dtype.kind != "f":
+        raise TypeError(f"the resizes take float images, got {img.dtype}")
+
+
+def _resize(img: np.ndarray, hw: Tuple[int, int], area: bool) -> np.ndarray:
+    """cv2.resize of an [H, W] or [H, W, C] float image to hw = (h, w)
+    with INTER_AREA (`area`) or INTER_LINEAR: rows, then columns, in
+    float64 from cv2's float32 coefficients, cast back to the input's
+    dtype. A 1-channel image keeps its channel axis."""
+    _check_float(img)
+    (h, w), (H, W) = hw, img.shape[:2]
+    x = np.asarray(img, np.float64).reshape(H, W, -1)
+    if area and h <= H and w <= W:
+        x = np.einsum("xw,hwc->hxc", _area_weights(W, w).astype(np.float64), x)
+        x = np.einsum("yh,hxc->yxc", _area_weights(H, h).astype(np.float64), x)
+    else:
+        # Enlarging (or one axis each way): two taps, cv2's "area mode"
+        # coefficients under INTER_AREA.
+        s0, s1, w0, w1 = _linear_taps(W, w, area)
+        x = x[:, s0] * w0[None, :, None] + x[:, s1] * w1[None, :, None]
+        s0, s1, w0, w1 = _linear_taps(H, h, area)
+        x = x[s0] * w0[:, None, None] + x[s1] * w1[:, None, None]
+    return x.reshape((h, w) + img.shape[2:]).astype(img.dtype)
+
+
 def resize_area(img: np.ndarray, scale_factor: float):
     """cv2.INTER_AREA resize by a scale factor; returns (img, [sy, sx])."""
-    import cv2
-
     new_size = np.round(np.array(img.shape[:2]) * scale_factor).astype(int)
-    out = cv2.resize(
-        img, (new_size[1], new_size[0]), interpolation=cv2.INTER_AREA
-    )
-    if out.ndim == 2 and img.ndim == 3:
-        out = out[..., None]
+    out = _resize(img, (int(new_size[0]), int(new_size[1])), area=True)
     actual = [new_size[0] / img.shape[0], new_size[1] / img.shape[1]]
     return out, actual
 
 
 def resize_to(img: np.ndarray, hw: Tuple[int, int], area: bool = True):
-    import cv2
+    """Resize to hw = (h, w): cv2.INTER_AREA, or INTER_LINEAR for
+    area=False."""
+    return _resize(img, hw, area)
 
-    interp = cv2.INTER_AREA if area else cv2.INTER_LINEAR
-    out = cv2.resize(img, (hw[1], hw[0]), interpolation=interp)
-    if out.ndim == 2 and img.ndim == 3:
-        out = out[..., None]
-    return out
+
+def resize_nearest(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """cv2.INTER_NEAREST resize to hw = (h, w): output pixel i takes source
+    pixel floor(i * src/dst) (not the nearest centre), as cv2 does."""
+    def index(n_src, n_dst):
+        step = 1.0 / (n_dst / n_src)
+        return np.minimum(np.floor(np.arange(n_dst) * step).astype(np.int64), n_src - 1)
+
+    return img[index(img.shape[0], hw[0])][:, index(img.shape[1], hw[1])]
 
 
 def avg_pool2(img: np.ndarray) -> np.ndarray:

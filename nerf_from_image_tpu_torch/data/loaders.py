@@ -5,8 +5,8 @@ Re-design of the reference loader layer (reference: data/loaders.py:90-501):
 DatasetSplits with the reference's exact materialization semantics (highres
 2x + avg-pool pair when ADA is on, crop=True for the eval split, CUB ortho
 focal/bbox clearing, train bbox=None). This package's copy of the JAX
-package's data/loaders.py; image readers import imageio (and the resizes
-cv2) inside the function, so the module imports without them.
+package's data/loaders.py; images are read by utils/images.py (PNG in
+numpy, other formats through imageio) and resized by data/image_ops.py.
 """
 
 from __future__ import annotations
@@ -249,13 +249,13 @@ def load_manual_image(path_or_url: str, img_size: int,
     Returns {'img': [S, S, 4] float32 in [-1, 1] (RGB * mask, mask),
              'normalized_bbox': [2, 2] crop rectangle in [-1, 1] coords}.
     """
-    import imageio.v2 as imageio
+    from nerf_from_image_tpu_torch.utils.images import read_image
 
     if path_or_url.startswith("http"):
         raise ValueError(
             "URL inputs need network access; download the image first"
         )
-    img = np.asarray(imageio.imread(path_or_url)).astype(np.float64)
+    img = read_image(path_or_url).astype(np.float64)
     if img.ndim == 2:
         img = np.stack([img] * 3, axis=-1)
     img = img / 255.0
@@ -269,7 +269,7 @@ def load_manual_image(path_or_url: str, img_size: int,
         stem, _ = os.path.splitext(path_or_url)
         mask_path = stem + "_mask.png"
         if os.path.exists(mask_path):
-            m = np.asarray(imageio.imread(mask_path)).astype(np.float64)
+            m = read_image(mask_path).astype(np.float64)
             if m.ndim == 3:
                 m = m[..., 0]
             mask = (m > 127)[..., None].astype(np.float64)

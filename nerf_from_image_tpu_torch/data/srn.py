@@ -24,7 +24,7 @@ _COORD_TRANS = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
 
 
 def _load_object(intrin_path: str, image_size: int, limit=None, rng=None):
-    import imageio.v2 as imageio
+    from nerf_from_image_tpu_torch.utils.images import read_image
 
     dir_path = os.path.dirname(intrin_path)
     rgb_paths = sorted(glob.glob(os.path.join(dir_path, "rgb", "*")))
@@ -45,7 +45,7 @@ def _load_object(intrin_path: str, image_size: int, limit=None, rng=None):
     imgs = []
     poses = []
     for rgb_path, pose_path in zip(rgb_paths, pose_paths):
-        img = imageio.imread(rgb_path)[..., :3].astype(np.float32) / 255.0
+        img = read_image(rgb_path)[..., :3].astype(np.float32) / 255.0
         pose = np.loadtxt(pose_path, dtype=np.float32).reshape(4, 4)
         poses.append(pose @ _COORD_TRANS)
         imgs.append(img)

@@ -91,16 +91,22 @@ def first_guess(
     return z0, pose_params_from_matrix(pose, focal, config.camera_flipped)
 
 
+def refuse_multi_device(args) -> None:
+    """Raises for --chips/--gpus > 1 and --multihost: the drivers run on
+    one device."""
+    if args.chips > 1 or args.multihost:
+        raise NotImplementedError(
+            "the port drives one device; more (--chips/--gpus > 1, --multihost) "
+            "come with ROADMAP.md section 1 item 8 (scale and persistence)")
+
+
 def _refuse_unported(args) -> None:
     """Raises for the requests whose parts are not ported yet."""
     if args.inv_train_coord_only:
         raise NotImplementedError(
             "--inv_train_coord_only trains the bootstrap encoder, which is not "
             "ported yet (ROADMAP.md section 1 item 6, encoder distillation)")
-    if args.chips > 1 or args.multihost:
-        raise NotImplementedError(
-            "the port drives one device; more (--chips/--gpus > 1, --multihost) "
-            "come with ROADMAP.md section 1 item 8 (scale and persistence)")
+    refuse_multi_device(args)
     inception_weights = os.environ.get("NFI_INCEPTION_WEIGHTS")
     if (not args.inv_export_demo_sample and inception_weights
             and os.path.exists(inception_weights)):

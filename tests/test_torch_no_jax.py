@@ -66,6 +66,48 @@ print("ok")
 """
 
 
+# The driving data path on the card machine: with JAX, imageio, PIL and
+# cv2 blocked, the fixture trees are written, each dataset's samples read
+# (PNG decode, LiDAR depth, the crop's area and nearest resizes) and a
+# crop taken as the demo takes it.
+_DRIVING_DATA = _BLOCKER.replace(
+    '"timing")', '"timing", "imageio", "PIL", "cv2")'
+).split("import nerf_from_image_tpu_torch as pkg")[0] + r"""
+import os, sys, tempfile
+import numpy as np
+from nerf_from_image_tpu_torch.data import driving, driving_fixtures, nusc_lite
+
+root = tempfile.mkdtemp()
+info = driving_fixtures.build_nusc_tree(os.path.join(root, "nusc"), 320, 180,
+                                        lidar_points=6800)
+ds = nusc_lite.NuScenesDrivingDataset(os.path.join(root, "nusc"), info["version"],
+                                      img_size=32, white_bkgd=True,
+                                      index_file=info["index_file"])
+for i in range(len(ds)):
+    s = ds[i]
+    assert s["img"].shape == (32, 32, 3) and (s["depth"] > 0).any(), i
+for waymo in (False, True):
+    sub = os.path.join(root, "waymo" if waymo else "kitti")
+    driving_fixtures.build_kitti_tree(sub, is_waymo=waymo, width=414, height=125,
+                                      lidar_points=20000)
+    kd = driving.KittiDrivingDataset(sub, img_size=32, white_bkgd=True,
+                                     split="validation" if waymo else "training",
+                                     is_waymo=waymo)
+    assert all((kd[i]["depth"] > 0).any() for i in range(2))
+frame = os.path.join(root, "nusc", "samples", "CAM_FRONT", info["frames"][0])
+preds, masks = driving.load_instance_masks(
+    os.path.join(root, "nusc", "pred_instance", "CAM_FRONT"), info["frames"][0][:-4])
+from nerf_from_image_tpu_torch.utils.images import read_image
+crop = driving.crop_for_inversion(read_image(frame)[..., :3],
+                                  driving.get_mask_occ_from_ins(masks, 0), None,
+                                  preds["boxes"][0], np.eye(3), 64, white_bkgd=False)
+assert crop["img"].shape == (64, 64, 3) and crop["mask"].shape == (64, 64)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+print("ok")
+"""
+
+
 def _modules():
     return [m.name for m in pkgutil.walk_packages(
         nerf_from_image_tpu_torch.__path__, "nerf_from_image_tpu_torch.")]
@@ -77,7 +119,8 @@ def test_every_module_imports_with_jax_blocked():
                    "engine.augment", "models.lpips", "metrics.image", "bench", "pose.pnp",
                    "models.segformer", "models.encoder", "engine.evaluate", "utils.fileio",
                    "invert", "arguments", "data.loaders", "data.coco_mask", "utils.images",
-                   "utils.tb"):
+                   "utils.tb", "eval_driving", "demo_driving", "evaluate_saved_result",
+                   "data.driving", "data.nusc_lite", "data.devkit", "data.driving_fixtures"):
         assert f"nerf_from_image_tpu_torch.{module}" in names, module
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER], cwd=REPO, capture_output=True,
@@ -90,6 +133,15 @@ def test_every_module_imports_with_jax_blocked():
 def test_driver_imports_and_writes_its_png_without_the_card_machines_missing_packages():
     out = subprocess.run(
         [sys.executable, "-c", _CARD_MACHINE], cwd=REPO, capture_output=True,
+        text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_driving_data_path_needs_no_cv2_imageio_or_pil():
+    out = subprocess.run(
+        [sys.executable, "-c", _DRIVING_DATA], cwd=REPO, capture_output=True,
         text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO},
     )
     assert out.returncode == 0, out.stderr
@@ -148,3 +200,9 @@ def test_entry_points_default_to_the_card():
     z0, p0 = first_guess(None, torch.zeros(1, 4, 4, 3), ws, InversionConfig(), pose=cam,
                          focal=focal, device="cpu")
     assert z0.shape == (1, 1, 8) and p0.q.shape == (1, 4)
+
+    from nerf_from_image_tpu_torch import demo_driving, eval_driving
+
+    for main in (eval_driving.main, demo_driving.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["--dataset", "nusc", "--nusc_data_dir", "unused"])
