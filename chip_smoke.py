@@ -87,7 +87,29 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     (nuScenes) and 6 (KITTI). Then demo_driving on the first frame, 5
     steps: 2 x 5 launches a car, a PNG of 6 panels a car. Prints
     s/object, ms per part and peak memory.
- 8. The splat probes (P1, P2; csrc/splat_probes.cu): every P1 stage and P2
+ 8. GAN training end to end (train.main in this process), cell
+    train-synthetic: the bench generator at full width (latent 512, 3
+    planes 256^2 x 32, a 10-color palette, SDF) and the pose-conditioned
+    discriminator at 128^2, `--dataset synthetic --resolution 128
+    --batch_size 8 --path_length_regularization --plane_splat true` at the
+    default `--query_chunk 131072`, f32 planes, `--iterations 10
+    --sdf_pretrain_steps 20 --max_images 64 --display_every 10` under
+    build/train_drive/; then `--dual_discriminator --augment_p 0.8
+    --disable_stylegan_noise false --iterations 4` from scratch under
+    build/train_drive_dual/ (the second discriminator, image and camera
+    augmentation, StyleGAN noise). Each run's splat launches are set to 0
+    just before and read just after, and must be 16 a G step (8 chunks x
+    2 passes of the main render) exactly: 80 and 64; D steps and SDF
+    pretraining launch none. The first G step's first two splat calls are
+    held to the plain version. Every loss must be finite; the saved
+    checkpoint_10.pth is read by utils/weights.load_reference_generator
+    and rendered once. Prints im/s over the GAN loop (batch x iterations
+    / wall time, as train.main prints it), G- and D-step ms (medians of
+    gan.g_step and gan.d_step, each on the host clock between a device
+    synchronize before and one after it: the wrappers add the only
+    synchronizes of the loop), SDF-pretraining ms/step and each run's peak
+    memory.
+ 9. The splat probes (P1, P2; csrc/splat_probes.cu): every P1 stage and P2
     variant against its plain version at a small shape, every P1 stage at
     three more small shapes at the edges of its launch plan (8 row
     fragments, WX=48, a partial slab and a partly filled ring stage),
@@ -104,7 +126,7 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     alone, and, where one exists, one PyTorch call computing the same
     work (profile_splat.library_call). They run after the main path, so
     that no torch.profiler session precedes its timings.
- 9. The kernel summary line, the card line, and last the ok line.
+10. The kernel summary line, the card line, and last the ok line.
 
 Weights are random, drawn from fixed seeds. Needs one card; exits non-zero
 without one, or when the package is not next to this file.
@@ -143,6 +165,13 @@ DRIVING_STEPS = max(DRIVING_CHECKPOINTS)
 NUSC_SIZE, KITTI_SIZE = (1600, 900), (1242, 375)
 NUSC_LIDAR_POINTS, KITTI_LIDAR_POINTS = 34000, 120000
 PNP_ROT_TOL_DEG = 0.1
+# Phase 8, train-synthetic: B=8 of the README's 32 (the pairwise merge's
+# [B, 128, 128, 64, 64] all-pairs tensors are not chunked).
+TRAIN_BATCH, TRAIN_ITERATIONS, TRAIN_PRETRAIN, TRAIN_IMAGES = 8, 10, 20, 64
+DUAL_ITERATIONS = 4
+# K1 launches of one G step's main render: 128^2 x 64 points a pass in
+# chunks of 131072, 2 passes.
+K1_PER_RENDER = 2 * (RES * RES * SAMPLES) // 131072
 # Lines of the TPU kernels the probe kernels replace.
 P1_KERNEL = "scripts/profile_splat.py:49"
 P2_KERNELS = {"empty": 51, "read_g": 71, "read_ixy_P1": 95, "read_ixy_2P": 119,
@@ -1174,6 +1203,173 @@ def phase_driving(gen_path, enc_path, splat3_backward):
     return results
 
 
+def _timed_steps(gan):
+    """Wraps gan.g_step, gan.d_step and gan.sdf_pretrain_step, each timed on
+    the host clock from a synchronize before its call to one after it
+    (train.main itself never synchronizes a step), keeping their outputs.
+    Returns ({'g': [(ms, metrics)], 'd': [...], 'pretrain': [(ms, loss)]},
+    a function that restores the three)."""
+    import torch
+
+    steps = {"g": [], "d": [], "pretrain": []}
+    originals = {name: getattr(gan, name) for name in ("g_step", "d_step", "sdf_pretrain_step")}
+
+    def timed(kind, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            steps[kind].append(((time.perf_counter() - t) * 1e3, out))
+            return out
+        return call
+
+    gan.g_step = timed("g", originals["g_step"])
+    gan.d_step = timed("d", originals["d_step"])
+    gan.sdf_pretrain_step = timed("pretrain", originals["sdf_pretrain_step"])
+
+    def restore():
+        for name, fn in originals.items():
+            setattr(gan, name, fn)
+
+    return steps, restore
+
+
+def _train_run(argv, splat3_backward, record=0):
+    """train.main(argv), its splat launches counted alone, its peak memory,
+    its steps timed (_timed_steps); with `record`, the first `record`
+    splat calls (cloned)."""
+    import contextlib
+
+    import torch
+
+    from nerf_from_image_tpu_torch import train
+    from nerf_from_image_tpu_torch.engine import gan
+    from nerf_from_image_tpu_torch.profile_step import recorded_splat_calls
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps, restore = _timed_steps(gan)
+    splat3_backward.launches = 0  # this path starts here
+    recorder = recorded_splat_calls(limit=record) if record else contextlib.nullcontext([])
+    t = time.perf_counter()
+    try:
+        with recorder as calls:
+            stats = train.main(argv)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    stats["main_s"] = time.perf_counter() - t
+    stats["launches"] = splat3_backward.launches
+    stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    stats["g_step_ms"] = [ms for ms, _ in steps["g"]]
+    stats["d_step_ms"] = [ms for ms, _ in steps["d"]]
+    stats["pretrain_ms"] = [ms for ms, _ in steps["pretrain"]]
+    # Every step's metrics and every pretraining loss, read after the run.
+    stats["losses"] = [{k: float(v) for k, v in m.items()}
+                       for kind in ("g", "d") for _, m in steps[kind]]
+    stats["losses"] += [{"sdf_pretrain_loss": float(loss)} for _, loss in steps["pretrain"]]
+    torch.cuda.empty_cache()
+    return stats, calls
+
+
+def phase_train(dev, splat3_backward):
+    """GAN training end to end, cell train-synthetic (see the module
+    docstring): the counted runs, their timings, the K1 check of the first
+    G step's calls, finite losses, and the checkpoint read back and
+    rendered. Returns the launches by path, the timings and the K1 errors."""
+    import shutil
+
+    import torch
+
+    from nerf_from_image_tpu_torch.data.configs import get_dataset_config
+    from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
+    from nerf_from_image_tpu_torch.models.generator import Generator
+    from nerf_from_image_tpu_torch.utils.weights import load_reference_generator
+
+    os.environ.pop("NFI_INCEPTION_WEIGHTS", None)  # train-time FID is not ported
+    common = ["--dataset", "synthetic", "--resolution", str(RES), "--batch_size",
+              str(TRAIN_BATCH), "--path_length_regularization", "--plane_splat", "true",
+              "--max_images", str(TRAIN_IMAGES), "--sdf_pretrain_steps", str(TRAIN_PRETRAIN)]
+    runs = {"train": (["--iterations", str(TRAIN_ITERATIONS), "--display_every",
+                       str(TRAIN_ITERATIONS)], TRAIN_ITERATIONS),
+            "train_dual": (["--iterations", str(DUAL_ITERATIONS), "--dual_discriminator",
+                            "--augment_p", "0.8", "--disable_stylegan_noise", "false"],
+                           DUAL_ITERATIONS)}
+    results, k1_errs, launches = {}, [], {}
+    for path, (extra, iterations) in runs.items():
+        root = os.path.join(REPO, "build", path.replace("train", "train_drive"))
+        shutil.rmtree(root, ignore_errors=True)  # from scratch: nothing to resume
+        stats, calls = _train_run(common + extra + ["--root_path", root], splat3_backward,
+                                  record=2 if path == "train" else 0)
+        for i, call in enumerate(calls):
+            k1_errs.append(k1_case(f"train, first G step, call {i}", *call)[:2])
+        del calls
+        per_render = K1_PER_RENDER * (2 if path == "train_dual" else 1)
+        want = per_render * ((iterations + 1) // 2)
+        if stats["launches"] != want:
+            raise AssertionError(f"{path}: {stats['launches']} splat launches, expected {want}")
+        bad = [(i, k, v) for i, m in enumerate(stats["losses"]) for k, v in m.items()
+               if not np.isfinite(v)]
+        if bad or len(stats["losses"]) != iterations + TRAIN_PRETRAIN:
+            raise AssertionError(f"{path}: {len(stats['losses'])} steps, non-finite losses "
+                                 f"{bad[:5]}")
+        timing = {
+            "img_per_s": TRAIN_BATCH * iterations / stats["seconds"],
+            "g_step_ms": float(np.median(stats["g_step_ms"])),
+            "d_step_ms": float(np.median(stats["d_step_ms"])),
+            "first_g_step_ms": stats["g_step_ms"][0],
+            "first_d_step_ms": stats["d_step_ms"][0],
+            "pretrain_ms_per_step": float(np.median(stats["pretrain_ms"])),
+            "loop_s": stats["seconds"], "main_s": stats["main_s"],
+            "peak_gib": stats["peak_gib"], "iterations": iterations,
+        }
+        results[path] = timing
+        launches[path] = stats["launches"]
+        last = {k: round(v, 4) for k, v in {**stats["metrics"]["g"],
+                                            **stats["metrics"]["d"]}.items()}
+        log(f"{path} (B={TRAIN_BATCH}, {RES}^2, 64+64 samples, chunks of 131072, "
+            f"{iterations} iterations after {TRAIN_PRETRAIN} SDF pretraining steps): "
+            f"{timing['img_per_s']:.2f} im/s over the GAN loop of {stats['seconds']:.1f} s; "
+            f"G step {timing['g_step_ms']:.1f} ms, D step {timing['d_step_ms']:.1f} ms "
+            f"(medians; first {timing['first_g_step_ms']:.0f} / "
+            f"{timing['first_d_step_ms']:.0f} ms), SDF pretraining "
+            f"{timing['pretrain_ms_per_step']:.1f} ms/step; main() {stats['main_s']:.1f} s; "
+            f"peak memory {timing['peak_gib']:.2f} GiB; splat launches {stats['launches']}")
+        log(f"  last losses {last}")
+        if path == "train":
+            checkpoint = stats["last_checkpoint"]
+    if not checkpoint.endswith(f"checkpoint_{TRAIN_ITERATIONS}.pth"):
+        raise AssertionError(f"the run saved {checkpoint}")
+
+    # The saved EMA generator, read as the inversion driver reads a
+    # reference checkpoint, and rendered once.
+    config = get_dataset_config("synthetic")
+    model = Generator(latent_dim=512, scene_range=config.scene_range, attention_values=10,
+                      use_sdf=True, device=dev)
+    load_reference_generator(model, checkpoint)
+    cam = torch.eye(4, device=dev)[None]
+    cam[0, 2, 3] = 2.5
+    with torch.no_grad():
+        z = torch.randn((1, 512), generator=torch.Generator(device=dev).manual_seed(5),
+                        device=dev)
+        out, _ = render(RenderConfig(resolution=RES, scene_range=config.scene_range,
+                                     white_background=config.white_background),
+                        model, cam, torch.full((1,), 1.5, device=dev), z, device=dev)
+    if out.rgb.shape != (1, RES, RES, 3) or not torch.isfinite(out.rgb).all():
+        raise AssertionError("the trained checkpoint rendered a non-finite image")
+    log(f"checkpoint {os.path.relpath(checkpoint, REPO)}: read back, rendered "
+        f"{tuple(out.rgb.shape)}, rgb in [{float(out.rgb.min()):.3f}, "
+        f"{float(out.rgb.max()):.3f}], mask mean {float(out.mask.mean()):.3f}")
+    del model
+    torch.cuda.empty_cache()
+    results["launches"] = launches
+    results["k1_max_abs_err"] = max(a for a, _ in k1_errs)
+    results["k1_max_rel_err"] = max(r for _, r in k1_errs)
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1238,11 +1434,18 @@ def main() -> int:
     paths.update(driving.pop("launches"))
     summary["max_abs_err"] = max(summary["max_abs_err"], driving.pop("k1_max_abs_err"))
     summary["max_rel_err"] = max(summary["max_rel_err"], driving.pop("k1_max_rel_err"))
+    torch.cuda.empty_cache()
+
+    training = phase_train(dev, splat3_backward)
+    paths.update(training.pop("launches"))
+    summary["max_abs_err"] = max(summary["max_abs_err"], training.pop("k1_max_abs_err"))
+    summary["max_rel_err"] = max(summary["max_rel_err"], training.pop("k1_max_rel_err"))
     summary["launches"] = sum(paths.values())
     summary["launches_by_path"] = paths
     summary["hybrid_inversion"] = hybrid
     summary["invert_driver"] = driver
     summary["driving"] = driving
+    summary["train"] = training
     torch.cuda.empty_cache()
 
     probes = phase_probes(dev)

@@ -269,18 +269,24 @@ def render(
     generator: Optional[torch.Generator] = None,
     force_no_cam_grad: bool = False,
     device="cuda",
+    label: Optional[torch.Tensor] = None,
+    image: Optional[torch.Tensor] = None,
+    noise_mode: str = "none",
 ) -> Tuple[compositing.CompositeOutput, Dict[str, Any]]:
     """Full render from latents and camera.
 
-    `latent`: [B, z_dim] goes through the mapping network; [B, 1, w_dim]
-    is broadcast to every layer; [B, num_ws, w_dim] is used as it is.
+    `latent`: [B, z_dim] goes through the mapping network, with the class
+    `label` [B] or conditioning `image` [B, H, W, 3] of a conditional
+    generator; [B, 1, w_dim] is broadcast to every layer; [B, num_ws,
+    w_dim] is used as it is. `noise_mode` ('none', 'const' or 'random',
+    drawn from `generator`) is the synthesis network's StyleGAN noise.
     Every tensor must lie on `device` ('cuda' by default, which needs a
     card; 'cpu' runs the kernels' plain versions).
     """
     dev = resolve_device(device)
     check_on_device(dev, tform_cam2world=tform_cam2world,
                     focal_length=focal_length, latent=latent, center=center,
-                    bbox=bbox)
+                    bbox=bbox, label=label, image=image)
     ray_origins, ray_directions, near, far = prepare_rays(
         config, tform_cam2world, focal_length, center, bbox
     )
@@ -290,9 +296,9 @@ def render(
         if latent.shape[1] == 1:
             ws = latent.expand(latent.shape[0], model.num_ws, latent.shape[2])
     else:
-        ws = model.mapping(latent)
+        ws = model.mapping(latent, label, image)
 
-    planes = model.synthesize(ws)
+    planes = model.synthesize(ws, noise_mode, generator)
     if config.plane_splat:
         # The splat op casts and corner-packs the raw planes itself, so its
         # backward returns unpacked plane gradients directly.

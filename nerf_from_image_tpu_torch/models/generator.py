@@ -1,11 +1,13 @@
 """Triplane SDF radiance-field generator with a StyleGAN2 backbone.
 
-Counterpart of nerf_from_image_tpu/models/generator.py: the unconditional
-generator's mapping, synthesis, texture palette and field queries,
-with SDF normals and the view-direction branch (CARLA). Attribute names
-are the reference state-dict keys. Not in this port yet: the conditional
-mapping (class labels, ResidualEncoder) and the raw-plane grid-sample
-decode that the double-backward regularizers use.
+Counterpart of nerf_from_image_tpu/models/generator.py: mapping
+(unconditional, or conditioned on a class label or on an image through
+ResidualEncoder), synthesis, texture palette and field queries, with SDF
+normals and the view-direction branch (CARLA). The decoder samples the
+planes through the splat op (first-order only), corner-packed tables, or
+the raw planes through ops/grid_sample.py, which autograd differentiates
+to any order: the double-backward regularizers decode there. Attribute
+names are the reference state-dict keys.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 from nerf_from_image_tpu_torch.kernels.splat import triplane_sample_mean
 from nerf_from_image_tpu_torch.models.layers import (
     ConditionalLayerNorm,
+    EqualizedConv2d,
     EqualizedLinear,
     LayerNormAffine,
     leaky_relu,
@@ -28,10 +31,15 @@ from nerf_from_image_tpu_torch.models.stylegan import (
     MappingNetwork,
     SynthesisNetwork,
 )
+from nerf_from_image_tpu_torch.ops.grid_sample import grid_sample_2d
 from nerf_from_image_tpu_torch.ops.triplane import plane_coords, sample_packed
 from nerf_from_image_tpu_torch.utils.device import resolve_device
 
 _INV_SQRT2 = math.sqrt(2.0) / 2.0
+
+
+def laplace_pdf(x, beta):
+    return 0.5 * torch.exp(-torch.abs(x) / beta) / beta
 
 
 def laplace_cdf(x, beta):
@@ -41,6 +49,79 @@ def laplace_cdf(x, beta):
 def wide_sigmoid_rescaled(x):
     """MipNeRF wide sigmoid rescaled to [-1.002, 1.002]."""
     return torch.sigmoid(x) * 2.004 - 1.002
+
+
+class _InstanceNormAffine(nn.Module):
+    """Per-channel affine of an instance norm (reference names weight,
+    bias); the normalization itself is in ResidualEncoder."""
+
+    def __init__(self, ch):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(ch))
+        self.bias = nn.Parameter(torch.zeros(ch))
+
+
+class ResidualEncoder(nn.Module):
+    """Image [B, H, W, nc] (NHWC) -> pooled feature vector [B, 512]: the
+    conditional generator's and the discriminator's image embedding.
+
+    With use_instance_norm the residual convs drop their bias and are
+    followed by an affine instance norm (eps 1e-5). `nd` is the
+    reference's argument; the pooled width is 512 whatever it is.
+    """
+
+    def __init__(self, nc, nd, use_instance_norm=False):
+        super().__init__()
+        self.use_instance_norm = use_instance_norm
+        bias_mid = not use_instance_norm
+        self.conv1 = EqualizedConv2d(nc, 64, 3)
+        self.conv2 = EqualizedConv2d(64, 128, 3)
+        self.conv3 = EqualizedConv2d(128, 128, 3, use_bias=bias_mid)
+        self.conv4 = EqualizedConv2d(128, 128, 3, use_bias=bias_mid)
+        self.shortcut = EqualizedConv2d(128, 256, 1, use_bias=False)
+        self.conv5 = EqualizedConv2d(128, 256, 3, use_bias=bias_mid)
+        self.conv6 = EqualizedConv2d(256, 256, 3, use_bias=bias_mid)
+        self.conv7 = EqualizedConv2d(256, 256, 3, use_bias=bias_mid)
+        self.conv8 = EqualizedConv2d(256, 256, 3, use_bias=bias_mid)
+        self.conv9 = EqualizedConv2d(256, 512, 3)
+        self.conv10 = EqualizedConv2d(512, 512, 3)
+        if use_instance_norm:
+            for i, ch in zip(range(3, 9), (128, 128, 256, 256, 256, 256)):
+                self.add_module(f"norm{i}", _InstanceNormAffine(ch))
+
+    def _norm(self, h, i):
+        if not self.use_instance_norm:
+            return h
+        mean = torch.mean(h, dim=(2, 3), keepdim=True)
+        var = torch.var(h, dim=(2, 3), keepdim=True, unbiased=False)
+        h = (h - mean) * torch.rsqrt(var + 1e-5)
+        norm = getattr(self, f"norm{i}")
+        return h * norm.weight.reshape(1, -1, 1, 1) + norm.bias.reshape(1, -1, 1, 1)
+
+    def _conv_norm(self, h, i):
+        return leaky_relu(self._norm(getattr(self, f"conv{i}")(h), i))
+
+    def forward(self, x):
+        x = x.permute(0, 3, 1, 2)
+        x = leaky_relu(self.conv1(x))
+        x = leaky_relu(self.conv2(x))
+        x = F.avg_pool2d(x, 2)
+
+        s = x
+        x = self._conv_norm(self._conv_norm(x, 3), 4)
+        x = F.avg_pool2d(x + s, 2) * _INV_SQRT2
+
+        s = self.shortcut(x)
+        x = self._conv_norm(self._conv_norm(x, 5), 6)
+        x = F.avg_pool2d(x + s, 2) * _INV_SQRT2
+
+        s = x
+        x = self._conv_norm(self._conv_norm(x, 7), 8)
+        x = F.avg_pool2d(x + s, 2) * _INV_SQRT2
+
+        x = leaky_relu(self.conv9(x))
+        x = leaky_relu(self.conv10(x))
+        return torch.mean(x, dim=(2, 3))
 
 
 class AttentionMapper(nn.Module):
@@ -142,9 +223,10 @@ class TriplanarDecoder(nn.Module):
     def forward(self, planes, coords, splat: bool = False,
                 table_dtype: Optional[str] = None, splat_grid=None):
         """planes: raw [B, 3, H, W, C] with splat=True (the splat op casts
-        to table_dtype and packs itself), else corner-packed
-        [B, 3, H, W, 4C]; coords: [B, N, 3] in [-1, 1]; splat_grid: None
-        or (img_shape, block_shape) of the points' ray grid for the splat
+        to table_dtype and packs itself), corner-packed [B, 3, H, W, 4C],
+        or raw without splat (bilinear grid sampling, differentiable to
+        any order); coords: [B, N, 3] in [-1, 1]; splat_grid: None or
+        (img_shape, block_shape) of the points' ray grid for the splat
         backward (kernels/splat.triplane_sample_mean)."""
         C = self.num_input_features
         if splat:
@@ -160,12 +242,16 @@ class TriplanarDecoder(nn.Module):
             e3 = sample_packed(planes[:, 2], c_yz)
             x = (e1 + e2 + e3) / 3.0
             mlp_dtype = torch.bfloat16 if planes.dtype == torch.bfloat16 else None
+        elif planes.shape[-1] == C:
+            c_xy, c_xz, c_yz = plane_coords(coords)
+            e1 = grid_sample_2d(planes[:, 0], c_xy)
+            e2 = grid_sample_2d(planes[:, 1], c_xz)
+            e3 = grid_sample_2d(planes[:, 2], c_yz)
+            x = (e1 + e2 + e3) / 3.0
+            mlp_dtype = torch.bfloat16 if planes.dtype == torch.bfloat16 else None
         else:
-            raise NotImplementedError(
-                "the raw-plane grid-sample decode (double-backward "
-                "regularizers) is not ported yet; pass packed planes or "
-                "splat=True"
-            )
+            raise ValueError(f"planes of {planes.shape[-1]} channels, expected "
+                             f"{C} (raw) or {4 * C} (corner-packed)")
         # bf16 tables keep the [N, hidden] MLP intermediates in bf16 too
         # (parameters stay f32); only the head output is cast back.
         x = self.net[0](x, mlp_dtype)
@@ -183,14 +269,14 @@ class _Mapping(nn.Module):
         super().__init__()
         self.backbone = backbone
 
-    def forward(self, z):
-        return self.backbone(z)
+    def forward(self, z, c=None):
+        return self.backbone(z, c)
 
 
 class Generator(nn.Module):
     """Top-level generator:
 
-      mapping(z) -> ws                            [B, num_ws, w_dim]
+      mapping(z, label, image) -> ws              [B, num_ws, w_dim]
       synthesize(ws) -> planes                    [B, 3, R, R, C]
       texture(ws) -> attention palette            [B, K, 3]
       sample_field(planes, points, ...)           field queries
@@ -202,6 +288,7 @@ class Generator(nn.Module):
     def __init__(self, latent_dim, scene_range, attention_values=0,
                  use_viewdir=False, use_sdf=True, w_dim=512, plane_channels=32,
                  synthesis_resolution=256, channel_base=32768, channel_max=512,
+                 use_encoder=False, num_classes: Optional[int] = None,
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
@@ -213,10 +300,17 @@ class Generator(nn.Module):
         self.w_dim = w_dim
         self.plane_channels = plane_channels
         self.synthesis_resolution = synthesis_resolution
+        self.use_encoder = use_encoder
+        self.num_classes = num_classes
 
+        # Conditioning: a class embedding, or an image through the
+        # encoder (whose pooled width is 512 whatever w_dim is).
+        c_dim = 512 if (num_classes or use_encoder) else 0
+        if use_encoder:
+            self.emb = ResidualEncoder(3, w_dim, use_instance_norm=True)
         self.mapping_network = _Mapping(MappingNetwork(
             z_dim=latent_dim, w_dim=w_dim, num_ws=self.num_ws, num_layers=2,
-            lr_multiplier=0.01,
+            lr_multiplier=0.01, c_dim=c_dim, normalize_c=False,
         ))
         self.synthesis_network = SynthesisNetwork(
             w_dim=w_dim, img_resolution=synthesis_resolution,
@@ -235,12 +329,17 @@ class Generator(nn.Module):
             self.alpha = nn.Parameter(torch.empty(1))
         if attention_values > 0:
             self.texture_mapper = AttentionMapper(w_dim, attention_values)
+        if num_classes:
+            self.class_embedding = nn.Embedding(num_classes, 512)
 
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         for m in self.modules():
             if m is not self and hasattr(m, "init_parameters"):
                 m.init_parameters(generator)
+        if num_classes:
+            with torch.no_grad():
+                self.class_embedding.weight.normal_(generator=generator)
         if use_sdf:
             with torch.no_grad():
                 self.beta.fill_(0.1)
@@ -258,20 +357,40 @@ class Generator(nn.Module):
 
     # ---- latent pipeline -------------------------------------------------
 
-    def mapping(self, z):
-        """z [B, latent] -> ws [B, num_ws, w_dim]."""
-        return self.mapping_network(z)
+    def mapping(self, z, label=None, image=None):
+        """z [B, latent] (+ class labels [B] or a conditioning image
+        [B, H, W, 3]) -> ws [B, num_ws, w_dim]."""
+        c = None
+        if self.use_encoder:
+            if image is None:
+                raise ValueError("an encoder-conditioned generator needs `image`")
+            c = self.emb(image)
+        elif self.num_classes:
+            if label is None:
+                raise ValueError("a class-conditional generator needs `label`")
+            c = self.class_embedding(label)
+        return self.mapping_network(z, c)
 
     def average_w(self, generator: Optional[torch.Generator] = None,
-                  n_samples: int = 10000):
-        """Mean w over `n_samples` latents drawn from `generator` (on the
-        model's device; None means a seed-0 generator) -> [1, num_ws, w_dim]."""
+                  n_samples: int = 10000, label=None):
+        """Mean w over latents drawn from `generator` (on the model's
+        device; None means a seed-0 generator). Unconditional: n_samples
+        latents -> [1, num_ws, w_dim]. Class-conditional: `label` [B],
+        min(n_samples, 256) latents a label -> [B, num_ws, w_dim]."""
         device = next(self.parameters()).device
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        z = torch.randn((n_samples, self.latent_dim), generator=generator,
-                        device=device)
-        return torch.mean(self.mapping_network(z), dim=0, keepdim=True)
+        if label is None:
+            z = torch.randn((n_samples, self.latent_dim), generator=generator,
+                            device=device)
+            return torch.mean(self.mapping_network(z), dim=0, keepdim=True)
+        if not self.num_classes:
+            raise ValueError("label given but the generator is unconditional")
+        n = min(n_samples, 256)
+        B = label.shape[0]
+        z = torch.randn((B * n, self.latent_dim), generator=generator, device=device)
+        w = self.mapping_network(z, self.class_embedding(torch.repeat_interleave(label, n)))
+        return torch.mean(w.reshape((B, n) + w.shape[1:]), dim=1)
 
     # ---- synthesis -------------------------------------------------------
 
@@ -298,6 +417,12 @@ class Generator(nn.Module):
         return self.viewdir_mapper(viewdirs)
 
     # ---- field queries ---------------------------------------------------
+
+    def decode(self, planes, coords):
+        """Raw-plane decode at normalized coords [B, N, 3] through the
+        grid-sample branch (differentiable to any order) -> (density or
+        distance [B, N, 1], features [B, N, F])."""
+        return self.decoder(planes, coords)
 
     def density_from_distance(self, density_or_distance, out_of_box_mask):
         """SDF (or raw) decoder output -> volume density sigma [B, N]."""

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from nerf_from_image_tpu_torch.ops import conv as conv_ops
 from nerf_from_image_tpu_torch.ops import filters
 
 
@@ -68,11 +69,11 @@ class EqualizedLinear(nn.Module):
 
 
 def conv2d(x, weight_oihw, stride=1, padding=0):
-    return F.conv2d(x, weight_oihw, stride=stride, padding=padding)
+    return conv_ops.conv2d(x, weight_oihw, stride, padding)
 
 
 def conv_transpose2d(x, weight_iohw, stride=2, padding=0):
-    return F.conv_transpose2d(x, weight_iohw, stride=stride, padding=padding)
+    return conv_ops.conv_transpose2d(x, weight_iohw, stride, padding)
 
 
 def conv_resampled2d(x, weight_oihw, f=None, up=False, down=False, padding=0):

@@ -1,10 +1,9 @@
-"""StyleGAN2 mapping and synthesis networks.
+"""StyleGAN2 backbone: mapping, synthesis and the discriminator.
 
-Counterpart of the generator side of nerf_from_image_tpu/models/stylegan.py
-(the discriminator parts wait for the training slice). Attribute names are
+Counterpart of nerf_from_image_tpu/models/stylegan.py. Attribute names are
 the reference state-dict keys (fc0..fcN, b4..b256, conv0/conv1/torgb,
-affine, ...). Activations run NCHW inside; SynthesisNetwork returns NHWC
-like the JAX package.
+affine, fromrgb/skip, ...). Activations run NCHW inside; SynthesisNetwork
+returns NHWC and DiscriminatorBackbone takes NHWC, like the JAX package.
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ import torch
 import torch.nn as nn
 
 from nerf_from_image_tpu_torch.models.layers import (
+    EqualizedConv2d,
     EqualizedLinear,
     conv_modulated2d,
     leaky_relu,
@@ -25,15 +25,30 @@ from nerf_from_image_tpu_torch.ops import filters
 
 
 class MappingNetwork(nn.Module):
-    """z -> w, broadcast to num_ws (unconditional: c_dim = 0)."""
+    """z (+ optional conditioning c) -> w, broadcast to num_ws.
+
+    c_dim = 0 is the unconditional network. With c_dim > 0, c is embedded
+    (`embed`, then normalized) when normalize_c, else concatenated as it
+    is; z_dim = 0 maps c alone (the discriminator's projection)."""
 
     def __init__(self, z_dim, w_dim, num_ws: Optional[int], num_layers=8,
-                 lr_multiplier=0.01, layer_features=None):
+                 lr_multiplier=0.01, layer_features=None, c_dim=0,
+                 normalize_c=True, embed_features=None):
         super().__init__()
+        self.z_dim = z_dim
+        self.c_dim = c_dim
+        self.normalize_c = normalize_c
         self.num_ws = num_ws
         self.num_layers = num_layers
+        if embed_features is None:
+            embed_features = w_dim if normalize_c else c_dim
+        if c_dim == 0:
+            embed_features = 0
+        if c_dim > 0 and normalize_c:
+            self.embed = EqualizedLinear(c_dim, embed_features)
         layer_features = layer_features or w_dim
-        features = [z_dim] + [layer_features] * (num_layers - 1) + [w_dim]
+        features = ([z_dim + embed_features] + [layer_features] * (num_layers - 1)
+                    + [w_dim])
         for idx in range(num_layers):
             self.add_module(
                 f"fc{idx}",
@@ -41,8 +56,11 @@ class MappingNetwork(nn.Module):
                                 lr_multiplier=lr_multiplier),
             )
 
-    def forward(self, z):
-        x = normalize_latent(z)
+    def forward(self, z, c=None):
+        x = normalize_latent(z) if self.z_dim > 0 else None
+        if self.c_dim > 0:
+            y = normalize_latent(self.embed(c)) if self.normalize_c else c
+            x = torch.cat((x, y), dim=-1) if x is not None else y
         for idx in range(self.num_layers):
             x = getattr(self, f"fc{idx}")(x)
         if self.num_ws is not None and x.dim() == 2:
@@ -207,3 +225,114 @@ class SynthesisNetwork(nn.Module):
             x, img = getattr(self, f"b{res}")(x, img, block_ws, noise_mode,
                                               generator)
         return img.permute(0, 2, 3, 1)
+
+
+class DiscriminatorBlock(nn.Module):
+    """fromrgb (first block only), a 1x1 down-sampling skip and two 3x3
+    convs, the second down-sampling; NCHW."""
+
+    def __init__(self, in_channels, tmp_channels, out_channels, img_channels):
+        super().__init__()
+        self.in_channels = in_channels
+        if in_channels == 0:
+            self.fromrgb = EqualizedConv2d(img_channels, tmp_channels, 1,
+                                           activate=True)
+        self.skip = EqualizedConv2d(tmp_channels, out_channels, 1, use_bias=False,
+                                    down=True)
+        self.conv0 = EqualizedConv2d(tmp_channels, tmp_channels, 3, activate=True)
+        self.conv1 = EqualizedConv2d(tmp_channels, out_channels, 3, activate=True,
+                                     down=True)
+
+    def forward(self, x, img):
+        if self.in_channels == 0:
+            y = self.fromrgb(img)
+            x = x + y if x is not None else y
+            img = None
+        y = self.skip(x, gain=math.sqrt(2.0) / 2.0)
+        x = self.conv0(x)
+        x = self.conv1(x, gain=math.sqrt(2.0) / 2.0)
+        return y + x, img
+
+
+def minibatch_std(x, group_size: int, num_channels: int = 1):
+    """Appends the per-group feature standard deviation as num_channels
+    channels (NCHW): groups are the outer split of the batch, channels
+    split into num_channels outer groups, as in the JAX package."""
+    bs, c, h, w = x.shape
+    ng = min(group_size, bs)
+    f = num_channels
+    y = x.reshape(ng, bs // ng, f, c // f, h, w)
+    y = y - torch.mean(y, dim=0, keepdim=True)
+    y = torch.mean(torch.square(y), dim=0)
+    y = torch.sqrt(y + 1e-8)
+    y = torch.mean(y, dim=(2, 3, 4))  # [bs // ng, f]
+    y = y.reshape(1, bs // ng, f, 1, 1).expand(ng, bs // ng, f, h, w)
+    return torch.cat((x, y.reshape(bs, f, h, w)), dim=1)
+
+
+class DiscriminatorOutput(nn.Module):
+    """The 4x4 epilogue: minibatch std, conv, fc, out, and the projection
+    on the conditioning map."""
+
+    def __init__(self, in_channels, cmap_dim, resolution, mbstd_group_size=4,
+                 mbstd_num_channels=1):
+        super().__init__()
+        self.cmap_dim = cmap_dim
+        self.mbstd_group_size = mbstd_group_size
+        self.mbstd_num_channels = mbstd_num_channels
+        self.conv = EqualizedConv2d(in_channels + mbstd_num_channels, in_channels, 3,
+                                    activate=True)
+        self.fc = EqualizedLinear(in_channels * resolution**2, in_channels,
+                                  activate=True)
+        self.out = EqualizedLinear(in_channels, 1 if cmap_dim == 0 else cmap_dim)
+
+    def forward(self, x, cmap=None):
+        if self.mbstd_num_channels > 0:
+            x = minibatch_std(x, self.mbstd_group_size, self.mbstd_num_channels)
+        x = self.conv(x)
+        # NCHW flattening: the order the reference's fc weights take.
+        x = self.fc(x.reshape(x.shape[0], -1))
+        x = self.out(x)
+        if self.cmap_dim > 0:
+            x = torch.sum(x * cmap, dim=1, keepdim=True) / math.sqrt(self.cmap_dim)
+        return x
+
+
+class DiscriminatorBackbone(nn.Module):
+    """StyleGAN2 discriminator with optional projection conditioning:
+    images NHWC [B, R, R, img_channels], c [B, c_dim] -> logits [B, 1]."""
+
+    def __init__(self, c_dim, img_resolution, img_channels, channel_base=32768,
+                 channel_max=512, cmap_dim=None, mapping_lr_multiplier=0.01,
+                 mapping_num_layers=2):
+        super().__init__()
+        self.c_dim = c_dim
+        self.resolutions = [2**i for i in range(int(math.log2(img_resolution)), 2, -1)]
+        channels = {res: min(channel_base // res, channel_max)
+                    for res in self.resolutions + [4]}
+        if cmap_dim is None:
+            cmap_dim = channels[4]
+        if c_dim == 0:
+            cmap_dim = 0
+        for res in self.resolutions:
+            self.add_module(f"b{res}", DiscriminatorBlock(
+                channels[res] if res < img_resolution else 0, channels[res],
+                channels[res // 2], img_channels))
+        if c_dim > 0:
+            self.mapping = MappingNetwork(
+                z_dim=0, c_dim=c_dim, w_dim=cmap_dim, num_ws=None,
+                num_layers=mapping_num_layers, lr_multiplier=mapping_lr_multiplier,
+                normalize_c=False)
+        self.b4 = DiscriminatorOutput(channels[4], cmap_dim=cmap_dim, resolution=4)
+
+    def forward(self, img, c=None):
+        x = None
+        img = img.permute(0, 3, 1, 2)
+        for res in self.resolutions:
+            x, img = getattr(self, f"b{res}")(x, img)
+        cmap = None
+        if self.c_dim == -1:
+            cmap = c
+        elif self.c_dim > 0:
+            cmap = self.mapping(None, c)
+        return self.b4(x, cmap)

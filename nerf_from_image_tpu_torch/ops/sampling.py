@@ -1,6 +1,7 @@
 """Depth samples: stratified ray sampling and inverse-CDF importance sampling.
 
-Counterpart of nerf_from_image_tpu/ops/sampling.py. Randomness comes from
+Counterpart of nerf_from_image_tpu/ops/sampling.py, with the stratified
+volume samples of the SDF regularizers. Randomness comes from
 an explicit torch.Generator on the tensors' device; `generator=None`
 selects the deterministic variants (bin left edges, linspace quantiles).
 """
@@ -99,3 +100,29 @@ def sample_pdf(
     denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
     t = (u - cdf_below) / denom
     return bins_below + t * (bins_above - bins_below)
+
+
+def sample_volume_stratified(
+    generator: Optional[torch.Generator],
+    batch_size: int,
+    nstrata: int,
+    scene_range: float,
+    dtype=torch.float32,
+    device=None,
+    jitter: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Stratified 3D volume samples in [-scene_range, scene_range]^3: one
+    jittered sample per cell of an (nstrata-1)^3 grid, the cells in the JAX
+    package's meshgrid(indexing='xy') order. `jitter` [batch_size,
+    (nstrata-1)^3, 3] in [0, 1) replaces the draw from `generator`.
+    Returns [batch_size, (nstrata-1)^3, 3].
+    """
+    n = nstrata - 1
+    grid = torch.arange(n, dtype=dtype, device=device)
+    gx, gy, gz = torch.meshgrid(grid, grid, grid, indexing="xy")
+    cells = torch.stack((gx, gy, gz), dim=-1).reshape(1, -1, 3)
+    cells = cells.expand(batch_size, n * n * n, 3)
+    if jitter is None:
+        jitter = torch.rand(cells.shape, generator=generator, dtype=dtype,
+                            device=device)
+    return ((cells + jitter) / n * 2.0 - 1.0) * scene_range

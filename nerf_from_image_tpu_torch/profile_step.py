@@ -1,7 +1,7 @@
 """Where the time of one full-width step goes on the card.
 
     python -m nerf_from_image_tpu_torch.profile_step [--plane_dtype bfloat16]
-        [--step render|inversion] [--loss mse|vgg]
+        [--step render|inversion|gan] [--loss mse|vgg]
 
 'render' is the bench step (Generator(512, 1.4, attention_values=10),
 B=4, 128^2 rays, 64 coarse + 64 fine samples, pairwise merge, splat
@@ -9,7 +9,11 @@ backward, grads w.r.t. ws and pose). 'inversion' is one inversion step at
 the same width with the loss of --loss ('vgg': LPIPS with random VGG16
 features from a seed, 15 crop augmentations), from the average w and a
 perturbed pose, towards a target rendered from a random latent (the cases
-chip_smoke.py runs).
+chip_smoke.py runs). 'gan' is one G step and one D step of the
+train-synthetic cell (engine/gan.py: the bench generator and the
+pose-conditioned discriminator at 128^2, B=8 synthetic images and
+cameras, path length, splat backward in chunks of 131072, f32 planes;
+iterations 2 and 3 of a run).
 Warms up once, then traces two steps with torch.profiler and prints the
 device time by kernel, the device-busy share of the wall time, and one
 JSON line with the totals.
@@ -127,6 +131,57 @@ def inversion_case(model, cfg, dev, steps, loss="mse", lpips=None):
     return invert, z0, p, target
 
 
+GAN_BATCH = 8
+
+
+def gan_case(dev, batch=GAN_BATCH, res=RES, model=None, disc=None, max_images=64):
+    """One G step and one D step of the train-synthetic cell, as the
+    training driver runs them: returns step() -> (G metrics, D metrics).
+    Each call takes the next two iterations, with their batches and
+    random draws."""
+    from nerf_from_image_tpu_torch.data.loaders import load_dataset
+    from nerf_from_image_tpu_torch.data.splits import StepIndexedSampler
+    from nerf_from_image_tpu_torch.engine import gan
+    from nerf_from_image_tpu_torch.models.discriminator import Discriminator
+    from nerf_from_image_tpu_torch.train import seeded_generator
+
+    config_ds, split, _, _ = load_dataset("synthetic", "unused", resolution=res,
+                                          augment_p=0.0, max_images=max_images)
+    if model is None:
+        model = Generator(latent_dim=512, scene_range=config_ds.scene_range,
+                          attention_values=10, use_sdf=True, device=dev,
+                          generator=torch.Generator().manual_seed(1234))
+    if disc is None:
+        disc = Discriminator(res, 3, config_ds.camera_flipped, device=dev,
+                             generator=torch.Generator().manual_seed(1235))
+    config = gan.GANTrainConfig(batch_size=batch, latent_dim=model.latent_dim,
+                                white_background=config_ds.white_background)
+    cfg = RenderConfig(resolution=res, depth_samples_per_ray=SAMPLES,
+                       scene_range=config_ds.scene_range,
+                       white_background=config_ds.white_background, plane_splat=True)
+    state = gan.init_gan_state(config, model, disc)
+    sampler = StepIndexedSampler(len(split), seed=1234)
+
+    def host_batch(draw, with_images):
+        sel = split.select(sampler(draw, batch))
+        out = {"pose": torch.as_tensor(sel.tform_cam2world, dtype=torch.float32).to(dev),
+               "focal": torch.as_tensor(sel.focal_length, dtype=torch.float32).to(dev)}
+        if with_images:
+            out["images"] = torch.as_tensor(sel.images[..., :3], dtype=torch.float32).to(dev)
+        return out
+
+    def step():
+        i = state.iteration
+        gm = gan.g_step(config, cfg, state, host_batch(4 * i, False),
+                        seeded_generator(dev, 1234, i))
+        i = state.iteration
+        dm = gan.d_step(config, cfg, state, host_batch(4 * i, True),
+                        host_batch(4 * i + 1, False), seeded_generator(dev, 1234, i))
+        return gm, dm
+
+    return step
+
+
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -137,23 +192,30 @@ def _device_us(evt) -> float:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--plane_dtype", default=None, choices=(None, "bfloat16"))
-    parser.add_argument("--step", default="render", choices=("render", "inversion"))
+    parser.add_argument("--step", default="render", choices=("render", "inversion", "gan"))
     parser.add_argument("--loss", default="mse", choices=("mse", "vgg"))
     parser.add_argument("--top", type=int, default=15)
+
     args = parser.parse_args(argv)
 
     dev = resolve_device("cuda")
     set_strict_f32()
-    model = Generator(latent_dim=512, scene_range=1.4, attention_values=10,
-                      use_sdf=True, device=dev,
-                      generator=torch.Generator().manual_seed(0))
-    model.requires_grad_(False)
-    cfg = RenderConfig(resolution=RES, depth_samples_per_ray=SAMPLES,
-                       scene_range=1.4, plane_dtype=args.plane_dtype,
-                       query_chunk=None, plane_splat=True)
+
+    if args.step == "gan":
+        if args.plane_dtype is not None:
+            parser.error("--step gan runs the cell's f32 planes")
+        step = gan_case(dev)
+    else:
+        model = Generator(latent_dim=512, scene_range=1.4, attention_values=10,
+                          use_sdf=True, device=dev,
+                          generator=torch.Generator().manual_seed(0))
+        model.requires_grad_(False)
+        cfg = RenderConfig(resolution=RES, depth_samples_per_ray=SAMPLES,
+                           scene_range=1.4, plane_dtype=args.plane_dtype,
+                           query_chunk=None, plane_splat=True)
     if args.step == "render":
         step = render_step(model, cfg, dev)
-    else:
+    elif args.step == "inversion":
         lpips = LPIPS(torch.Generator().manual_seed(4), device=dev) \
             if args.loss == "vgg" else None
         invert, z0, pose, target = inversion_case(model, cfg, dev, steps=1,
@@ -176,7 +238,8 @@ def main(argv=None) -> None:
     # of the kernels they launch.
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
     busy_us = sum(_device_us(e) for e in kernels)
-    label = args.step if args.step == "render" else f"inversion loss={args.loss}"
+    label = {"render": "render", "gan": "gan (one G step + one D step, B=8)"}.get(
+        args.step, f"inversion loss={args.loss}")
     print(f"{label} plane_dtype={args.plane_dtype or 'float32'}: wall {wall_us / steps / 1e3:.1f} "
           f"ms/step, device busy {busy_us / steps / 1e3:.1f} ms/step "
           f"({100 * busy_us / wall_us:.1f}% of wall)")
@@ -190,6 +253,7 @@ def main(argv=None) -> None:
     print(json.dumps({
         "step": args.step,
         "loss": args.loss if args.step == "inversion" else None,
+        "batch": GAN_BATCH if args.step == "gan" else BATCH,
         "plane_dtype": args.plane_dtype or "float32",
         "wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,

@@ -55,9 +55,14 @@ def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix, tree
 
 
-def generator_state_dict_from_jax(variables_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """A JAX `Generator.init(...)` variable tree of numpy arrays (collections
-    'params' and 'buffers') -> a state_dict for this port's Generator.
+def state_dict_from_jax(variables_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX variable tree of numpy arrays -> a state_dict for the port's
+    module of the same structure: a `Generator.init(...)` tree
+    (collections 'params' and 'buffers'), conditional ones included
+    (`emb.*` with its instance norms, `class_embedding.weight`,
+    `mapping_network.backbone.*`), or a `Discriminator.init(...)` or
+    `ResidualEncoder` tree (`backbone.*`, `label_embedding.weight`,
+    `emb.*`): one rename serves them all.
 
     Load it with `load_state_dict(sd, strict=True)`.
     """

@@ -126,7 +126,7 @@ def files(tmp_path_factory):
     `.pth` files, and the average w both drivers start from."""
     root = tmp_path_factory.mktemp("driving_drive")
     jm = _tiny_jax_generator(latent_dim=64, scene_range=3.0, attention_values=10)
-    sd = weights.generator_state_dict_from_jax(seeded_generator_variables(jm, 7))
+    sd = weights.state_dict_from_jax(seeded_generator_variables(jm, 7))
     torch.save({"model_ema": sd}, root / "g.pth")
     _, enc_vars, _ = encoder_pair()
     torch.save({"model_coord": weights.encoder_state_dict_from_jax(enc_vars)}, root / "c.pth")

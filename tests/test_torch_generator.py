@@ -21,10 +21,18 @@ from nerf_from_image_tpu.ops.triplane import pack_corners as jax_pack_corners
 from nerf_from_image_tpu_torch.models.generator import Generator
 from nerf_from_image_tpu_torch.models.lpips import LPIPS
 from nerf_from_image_tpu_torch.ops.triplane import pack_corners
-from nerf_from_image_tpu_torch.utils.weights import (
-    generator_state_dict_from_jax,
-    lpips_state_dict_from_jax,
-)
+from nerf_from_image_tpu_torch.utils.weights import lpips_state_dict_from_jax, state_dict_from_jax
+
+# JAX references that are traced once and run a few times at tiny shapes
+# compile ~30% sooner with LLVM at -O0 (not those that run wide
+# convolutions: XLA:CPU runs them much slower there).
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+
+
+def jax_compiled(fn, *args):
+    """fn jitted and compiled for `args` with FAST_COMPILE."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=FAST_COMPILE)
+
 
 # The render-level config of tests/test_splat.py.
 TINY = dict(latent_dim=64, scene_range=1.4, attention_values=4, use_sdf=True,
@@ -38,7 +46,7 @@ def tiny_pair():
     jm = JaxGenerator(**TINY)
     variables = jax.jit(lambda k: jm.init(k, method="init_all"))(jax.random.key(0))
     tm = Generator(**TINY, device="cpu")
-    sd = generator_state_dict_from_jax(jax.tree.map(np.asarray, variables))
+    sd = state_dict_from_jax(jax.tree.map(np.asarray, variables))
     tm.load_state_dict(sd, strict=True)
     return jm, variables, tm
 
@@ -108,7 +116,7 @@ def _rel(a, b):
 
 def test_weight_carry_over_is_strict():
     jm, variables, tm = tiny_pair()
-    sd = generator_state_dict_from_jax(jax.tree.map(np.asarray, variables))
+    sd = state_dict_from_jax(jax.tree.map(np.asarray, variables))
     assert set(sd) == set(tm.state_dict())
     assert "mapping_network.backbone.fc0.weight" in sd
     assert "decoder.net.2.weight" in sd

@@ -37,7 +37,11 @@ from nerf_from_image_tpu_torch.utils.weights import (
 )
 from tests.test_pnp import synth_problem
 from tests.test_torch_encoder import DEPTHS, encoder_pair
-from tests.test_torch_generator import release_memory, tiny_pair  # noqa: F401
+from tests.test_torch_generator import (  # noqa: F401
+    jax_compiled,
+    release_memory,
+    tiny_pair,
+)
 from tests.test_torch_render import SR_INNER, _jax_inversion
 
 TOL = 1e-4
@@ -235,8 +239,9 @@ def _jax_maps_render():
     pose, focal = _cameras()
     ws = (np.random.default_rng(7).standard_normal((B, jm.num_ws, 64)) * 0.1).astype(np.float32)
     jcfg = jrender.RenderConfig(compute_normals=True, compute_coords=True, **RC_KW)
-    out = jax.jit(lambda w: jrender.render(jcfg, jm, variables, pose, focal, w,
-                                           force_no_cam_grad=True)[0])(jnp.asarray(ws))
+    out = jax_compiled(lambda w: jrender.render(jcfg, jm, variables, pose, focal, w,
+                                                force_no_cam_grad=True)[0],
+                       jnp.asarray(ws))(jnp.asarray(ws))
     return ws, jax.tree.map(np.asarray, out._asdict())
 
 

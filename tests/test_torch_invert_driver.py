@@ -89,7 +89,7 @@ def files(tmp_path_factory):
     root = tmp_path_factory.mktemp("inputs")
     jm = _tiny_jax_generator(latent_dim=64, scene_range=0.55, attention_values=10)
     variables = seeded_generator_variables(jm, 7)
-    sd = weights.generator_state_dict_from_jax(variables)
+    sd = weights.state_dict_from_jax(variables)
     sd["synthesis_network.b8.resample_filter"] = torch.ones(4, 4)
     sd["synthesis_network.b16.conv0.resample_filter"] = torch.ones(4, 4)
     torch.save({"model_ema": sd, "model": {}}, root / "g_synthetic.pth")
@@ -189,7 +189,7 @@ def test_generator_reader_gives_the_jax_readers_weights(files):
     the same file; both strict: a missing or unused entry raises, a size
     that differs raises, a reshape of the same size passes."""
     sd = torch_interop.load_torch_checkpoint(files["generator"], key="model_ema")
-    want = weights.generator_state_dict_from_jax(
+    want = weights.state_dict_from_jax(
         torch_interop.state_dict_to_variables(
             jax.tree.map(np.zeros_like, files["variables"]), sd))
     model = _tiny_port_generator(latent_dim=64, scene_range=0.55, attention_values=10,

@@ -120,14 +120,16 @@ def test_every_module_imports_with_jax_blocked():
                    "models.segformer", "models.encoder", "engine.evaluate", "utils.fileio",
                    "invert", "arguments", "data.loaders", "data.coco_mask", "utils.images",
                    "utils.tb", "eval_driving", "demo_driving", "evaluate_saved_result",
-                   "data.driving", "data.nusc_lite", "data.devkit", "data.driving_fixtures"):
+                   "data.driving", "data.nusc_lite", "data.devkit", "data.driving_fixtures",
+                   "engine.gan", "engine.regularizers", "models.discriminator",
+                   "utils.checkpoint", "train"):
         assert f"nerf_from_image_tpu_torch.{module}" in names, module
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER], cwd=REPO, capture_output=True,
         text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO},
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) == len(names) >= 28
+    assert int(out.stdout.strip().splitlines()[-1]) == len(names) >= 33
 
 
 def test_driver_imports_and_writes_its_png_without_the_card_machines_missing_packages():
@@ -206,3 +208,11 @@ def test_entry_points_default_to_the_card():
     for main in (eval_driving.main, demo_driving.main):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(["--dataset", "nusc", "--nusc_data_dir", "unused"])
+
+    from nerf_from_image_tpu_torch import train
+    from nerf_from_image_tpu_torch.models.discriminator import Discriminator
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Discriminator(8, 3, False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--dataset", "synthetic"])

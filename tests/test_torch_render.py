@@ -27,7 +27,12 @@ from nerf_from_image_tpu_torch.engine import inversion as tinv
 from nerf_from_image_tpu_torch.engine import render as trender
 from nerf_from_image_tpu_torch.kernels import splat as tsplat
 from nerf_from_image_tpu_torch.models.lpips import LPIPS
-from tests.test_torch_generator import lpips_pair, release_memory, tiny_pair  # noqa: F401
+from tests.test_torch_generator import (  # noqa: F401
+    jax_compiled,
+    lpips_pair,
+    release_memory,
+    tiny_pair,
+)
 
 SR_INNER = 1.4 * (1.0 - 1e-4)
 TOL_INNER = 1e-4
@@ -69,8 +74,9 @@ def _jax_render(merge, zbuffer):
         out, _ = jrender.render(jcfg, jm, variables, pose, jnp.asarray(focal), ws)
         return jnp.sum(jnp.square(out.rgb)) + jnp.sum(jnp.square(out.mask)), out
 
-    (_, jout), (jgw, jgp) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(
-        jnp.asarray(_ws()), jnp.asarray(pose))
+    args = (jnp.asarray(_ws()), jnp.asarray(pose))
+    (_, jout), (jgw, jgp) = jax_compiled(
+        jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True), *args)(*args)
     return tuple(np.asarray(t) for t in (jout.rgb, jout.mask, jout.depth, jgw, jgp))
 
 
@@ -123,8 +129,9 @@ def _inversion_start():
     rng = np.random.default_rng(2)
     jrc = jrender.RenderConfig(**RC_KW)
     w_true = (rng.standard_normal((1, 1, 64)) * 0.5).astype(np.float32)
-    target = jax.jit(lambda p, f, w: jrender.render(jrc, jm, variables, p, f, w)[0].rgb)(
-        jnp.asarray(pose), jnp.asarray(focal), jnp.asarray(w_true))
+    args = (jnp.asarray(pose), jnp.asarray(focal), jnp.asarray(w_true))
+    target = jax_compiled(lambda p, f, w: jrender.render(jrc, jm, variables, p, f, w)[0].rgb,
+                          *args)(*args)
     target = np.asarray(target)
     z0 = (rng.standard_normal((1, 1, 64)) * 0.1
           / jinv.InversionConfig.lr_gain_z).astype(np.float32)
@@ -168,9 +175,13 @@ def _jax_inversion(jcfg, jrc, target, z0, p0, lpips_model=None, lpips_vars=None,
     tx = optax.adam(jcfg.lr, b1=jcfg.b1, b2=jcfg.b2)
     state = tx.init(opt)
     losses = []
+    # The 'vgg' loop runs VGG16, which runs slowly at -O0.
     value_and_grad = jax.jit(jax.value_and_grad(loss_fn))
     for k in range(jcfg.steps):
-        loss, grads = value_and_grad(opt, None if tforms is None else tforms[k])
+        args = (opt, None if tforms is None else tforms[k])
+        if lpips_model is None and k == 0:
+            value_and_grad = jax_compiled(jax.value_and_grad(loss_fn), *args)
+        loss, grads = value_and_grad(*args)
         updates, state = tx.update(grads, state, opt)
         opt = optax.apply_updates(opt, updates)
         opt = {"z": opt["z"], "pose": jinv._project(opt["pose"])}

@@ -27,9 +27,10 @@ from nerf_from_image_tpu.engine import render as jrender
 from nerf_from_image_tpu.models.generator import Generator as JaxGenerator
 from nerf_from_image_tpu_torch.engine import render as trender
 from nerf_from_image_tpu_torch.models.generator import Generator
-from nerf_from_image_tpu_torch.utils.weights import generator_state_dict_from_jax
+from nerf_from_image_tpu_torch.utils.weights import state_dict_from_jax
 from tests.test_torch_generator import (  # noqa: F401
     TINY,
+    jax_compiled,
     release_memory,
     seeded_generator_variables,
 )
@@ -47,7 +48,7 @@ def _viewdir_pair():
     jm = JaxGenerator(**TINY, use_viewdir=True)
     variables = seeded_generator_variables(jm, 11)
     tm = Generator(**TINY, use_viewdir=True, device="cpu")
-    tm.load_state_dict(generator_state_dict_from_jax(variables), strict=True)
+    tm.load_state_dict(state_dict_from_jax(variables), strict=True)
     return jm, variables, tm
 
 
@@ -84,8 +85,9 @@ def _jax_render(no_cam_grad):
                                 force_no_cam_grad=no_cam_grad)
         return jnp.sum(jnp.square(out.rgb)) + jnp.sum(jnp.square(out.mask)), out
 
-    (_, jout), (jgw, jgp) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(
-        jnp.asarray(_ws()), jnp.asarray(pose))
+    args = (jnp.asarray(_ws()), jnp.asarray(pose))
+    (_, jout), (jgw, jgp) = jax_compiled(
+        jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True), *args)(*args)
     return tuple(np.asarray(t) for t in (jout.rgb, jout.mask, jgw, jgp))
 
 
