@@ -109,7 +109,34 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     synchronize before and one after it: the wrappers add the only
     synchronizes of the loop), SDF-pretraining ms/step and each run's peak
     memory.
- 9. The splat probes (P1, P2; csrc/splat_probes.cu): every P1 stage and P2
+ 9. Encoder distillation end to end (train_encoder.main in this
+    process), cell train-encoder-synthetic: the full MiT-B5 bootstrap
+    encoder distilled from phase 6's `.pth` bench generator, `--dataset
+    synthetic --resolution 128 --batch_size 32` (the driver's default
+    batch, the pairwise merge), 4 iterations, then a resume for 2 more
+    and one more through `invert --inv_train_coord_only`, under
+    build/encoder_drive/. Each run's splat launches are set to 0 just
+    before and read just after, and must be 0 (the target render takes
+    no gradient). Every loss finite, each run starting where the last
+    ended; the checkpoint's 'model_coord' read by
+    utils/weights.load_reference_encoder. Prints ms/step (median, each
+    step between a synchronize before and one after it, the first apart),
+    peak memory, the batch and the merge mode.
+10. FID and the train-time evaluation, cell fid-eval: the full
+    FIDInceptionV3 (random weights from a seed) on the card against the
+    CPU for 2 images of 128^2 resized to 299^2; the Frechet distance of
+    two 2048-d statistics (Inception activations of 64 and 96 images, in
+    metrics/fid.py's FID_DTYPE) on the card against the CPU, with its gap
+    to a float64 eigenvalue reference; then NFI_INCEPTION_WEIGHTS pointed
+    at a pytorch-fid-named `.pth` of those weights under build/fid_drive/,
+    and train.main (B=8, 2 iterations, one evaluation of 32 images) once
+    plain (generation FID) and once with --use_encoder (the
+    reconstruction scalars and FIDs, best_fid.json), each path's splat
+    launches 16 a G step and none in the evaluation; and invert.main on
+    phase 6's files with FID on (2 'vgg' steps, 8 launches), its report's
+    fid_front and fid_random finite. Prints Inception ms per batch of 32,
+    FID ms, evaluation ms, peak memory and the launches.
+11. The splat probes (P1, P2; csrc/splat_probes.cu): every P1 stage and P2
     variant against its plain version at a small shape, every P1 stage at
     three more small shapes at the edges of its launch plan (8 row
     fragments, WX=48, a partial slab and a partly filled ring stage),
@@ -126,7 +153,7 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     alone, and, where one exists, one PyTorch call computing the same
     work (profile_splat.library_call). They run after the main path, so
     that no torch.profiler session precedes its timings.
-10. The kernel summary line, the card line, and last the ok line.
+12. The kernel summary line, the card line, and last the ok line.
 
 Weights are random, drawn from fixed seeds. Needs one card; exits non-zero
 without one, or when the package is not next to this file.
@@ -172,6 +199,14 @@ DUAL_ITERATIONS = 4
 # K1 launches of one G step's main render: 128^2 x 64 points a pass in
 # chunks of 131072, 2 passes.
 K1_PER_RENDER = 2 * (RES * RES * SAMPLES) // 131072
+# Phase 9, train-encoder-synthetic: the driver's default batch, a few
+# iterations, a resume for two more and one through the hand-over.
+ENCODER_BATCH, ENCODER_MERGE = 32, "pairwise"
+ENCODER_ITERATIONS, ENCODER_RESUME = 4, 2
+# Phase 10, fid-eval: card vs CPU gates; the train runs' evaluation size.
+INCEPTION_TOL = 1e-4  # relative to the largest activation
+FID_TOL = 1e-6  # float64 on both sides
+FID_IMAGES, FID_ITERATIONS, FID_INV_STEPS = 32, 2, 2
 # Lines of the TPU kernels the probe kernels replace.
 P1_KERNEL = "scripts/profile_splat.py:49"
 P2_KERNELS = {"empty": 51, "read_g": 71, "read_ixy_P1": 95, "read_ixy_2P": 119,
@@ -952,7 +987,7 @@ def phase_invert_driver(dev, model, encoder, splat3_backward):
     argv = ["--dataset", "synthetic", "--resolution", str(RES), "--batch_size", "32",
             "--max_images", str(DRIVE_IMAGES), "--plane_splat", "true", "--query_chunk", "0",
             "--resume_from", gen_path, "--coord_resume_from", enc_path, "--root_path", root]
-    os.environ.pop("NFI_INCEPTION_WEIGHTS", None)  # FID is not ported
+    os.environ.pop("NFI_INCEPTION_WEIGHTS", None)  # FID runs in phase 10
     cwd = os.getcwd()
     os.chdir(root)  # the demo composite goes to ./outputs/
     try:
@@ -1203,34 +1238,38 @@ def phase_driving(gen_path, enc_path, splat3_backward):
     return results
 
 
-def _timed_steps(gan):
-    """Wraps gan.g_step, gan.d_step and gan.sdf_pretrain_step, each timed on
-    the host clock from a synchronize before its call to one after it
-    (train.main itself never synchronizes a step), keeping their outputs.
-    Returns ({'g': [(ms, metrics)], 'd': [...], 'pretrain': [(ms, loss)]},
-    a function that restores the three)."""
+def _timed(module, name, record):
+    """Wraps module.<name> so that each call is timed on the host clock from
+    a synchronize before it to one after it and appended to `record` as
+    (ms, output). Returns a function that restores the original."""
     import torch
 
+    original = getattr(module, name)
+
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = original(*args, **kwargs)
+        torch.cuda.synchronize()
+        record.append(((time.perf_counter() - t) * 1e3, out))
+        return out
+
+    setattr(module, name, call)
+    return lambda: setattr(module, name, original)
+
+
+def _timed_steps(gan):
+    """Wraps gan.g_step, gan.d_step and gan.sdf_pretrain_step with _timed
+    (train.main itself never synchronizes a step). Returns ({'g': [(ms,
+    metrics)], 'd': [...], 'pretrain': [(ms, loss)]}, a function that
+    restores the three)."""
     steps = {"g": [], "d": [], "pretrain": []}
-    originals = {name: getattr(gan, name) for name in ("g_step", "d_step", "sdf_pretrain_step")}
-
-    def timed(kind, fn):
-        def call(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            steps[kind].append(((time.perf_counter() - t) * 1e3, out))
-            return out
-        return call
-
-    gan.g_step = timed("g", originals["g_step"])
-    gan.d_step = timed("d", originals["d_step"])
-    gan.sdf_pretrain_step = timed("pretrain", originals["sdf_pretrain_step"])
+    restores = [_timed(gan, name, steps[kind]) for kind, name in
+                (("g", "g_step"), ("d", "d_step"), ("pretrain", "sdf_pretrain_step"))]
 
     def restore():
-        for name, fn in originals.items():
-            setattr(gan, name, fn)
+        for undo in restores:
+            undo()
 
     return steps, restore
 
@@ -1288,7 +1327,7 @@ def phase_train(dev, splat3_backward):
     from nerf_from_image_tpu_torch.models.generator import Generator
     from nerf_from_image_tpu_torch.utils.weights import load_reference_generator
 
-    os.environ.pop("NFI_INCEPTION_WEIGHTS", None)  # train-time FID is not ported
+    os.environ.pop("NFI_INCEPTION_WEIGHTS", None)  # the evaluation runs in phase 10
     common = ["--dataset", "synthetic", "--resolution", str(RES), "--batch_size",
               str(TRAIN_BATCH), "--path_length_regularization", "--plane_splat", "true",
               "--max_images", str(TRAIN_IMAGES), "--sdf_pretrain_steps", str(TRAIN_PRETRAIN)]
@@ -1370,6 +1409,260 @@ def phase_train(dev, splat3_backward):
     return results
 
 
+def phase_train_encoder(gen_path, splat3_backward):
+    """Encoder distillation end to end (train_encoder.main in this process),
+    cell train-encoder-synthetic: the full MiT-B5 encoder distilled from
+    phase 6's bench generator, a resume, the checkpoint read back, and the
+    --inv_train_coord_only hand-over. Returns the launches by path and the
+    timings."""
+    import shutil
+
+    import torch
+
+    from nerf_from_image_tpu_torch import invert, train_encoder
+    from nerf_from_image_tpu_torch.engine import coord_regressor
+    from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
+    from nerf_from_image_tpu_torch.utils.checkpoint import load_train_checkpoint
+    from nerf_from_image_tpu_torch.utils.weights import load_reference_encoder
+
+    root = os.path.join(REPO, "build", "encoder_drive")
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--dataset", "synthetic", "--resolution", str(RES), "--batch_size",
+            str(ENCODER_BATCH), "--merge_mode", ENCODER_MERGE, "--max_images",
+            str(TRAIN_IMAGES), "--resume_from", gen_path, "--root_path", root]
+    steps, launches, runs = [], {}, {}
+    restore = _timed(coord_regressor, "coord_train_step", steps)
+    try:
+        for path, iterations, entry in (
+                ("train_encoder", ENCODER_ITERATIONS, train_encoder.main),
+                ("train_encoder_resume", ENCODER_ITERATIONS + ENCODER_RESUME,
+                 train_encoder.main),
+                ("invert_coord_only", ENCODER_ITERATIONS + ENCODER_RESUME + 1,
+                 lambda a: invert.main(a + ["--inv_train_coord_only"]))):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            splat3_backward.launches = 0  # this path starts here
+            run = entry(argv + ["--iterations", str(iterations)])
+            torch.cuda.synchronize()
+            launches[path] = splat3_backward.launches
+            run["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            runs[path] = run
+    finally:
+        restore()
+    first, resumed, handed = (runs[k] for k in launches)
+    want = [(0, ENCODER_ITERATIONS), (ENCODER_ITERATIONS, ENCODER_ITERATIONS + ENCODER_RESUME),
+            (ENCODER_ITERATIONS + ENCODER_RESUME, ENCODER_ITERATIONS + ENCODER_RESUME + 1)]
+    got = [(r["start_iteration"], r["iterations"]) for r in (first, resumed, handed)]
+    if got != want:
+        raise AssertionError(f"encoder runs (start, end) {got}, expected {want}")
+    losses = [{k: float(v) for k, v in out.items()} for _, out in steps]
+    bad = [(i, k, v) for i, m in enumerate(losses) for k, v in m.items() if not np.isfinite(v)]
+    if bad or len(losses) != want[-1][1]:
+        raise AssertionError(f"{len(losses)} encoder steps, non-finite losses {bad[:5]}")
+    if any(launches.values()):
+        raise AssertionError(f"encoder distillation launched the splat kernel: {launches}")
+
+    # The checkpoint, read as the inversion driver reads a reference encoder.
+    state = load_train_checkpoint(handed["last_checkpoint"])
+    encoder = BootstrapEncoder(latent_dim=512, device="cuda",
+                               generator=torch.Generator().manual_seed(3))
+    load_reference_encoder(encoder, handed["last_checkpoint"])
+    for k, v in encoder.state_dict().items():
+        if not torch.equal(v.cpu(), state["model_coord"][k]):
+            raise AssertionError(f"the encoder checkpoint's {k} did not load")
+    if state["iteration"] != want[-1][1] or state["optimizer_coord"]["count"] != want[-1][1]:
+        raise AssertionError(f"the checkpoint is at iteration {state['iteration']}")
+    del encoder, state
+
+    ms = [t for t, _ in steps]
+    timing = {"ms_per_step": float(np.median(ms[1:ENCODER_ITERATIONS])),
+              "resumed_ms_per_step": float(np.median(ms[ENCODER_ITERATIONS:])),
+              "first_step_ms": ms[0], "peak_gib": first["peak_gib"],
+              "batch": ENCODER_BATCH, "merge_mode": ENCODER_MERGE,
+              "steps": len(ms), "loop_s": first["seconds"]}
+    log(f"train_encoder (MiT-B5 from the bench generator, B={ENCODER_BATCH}, {RES}^2, 64+64 "
+        f"samples, merge {ENCODER_MERGE}): {timing['ms_per_step']:.1f} ms/step (median of "
+        f"steps 2-{ENCODER_ITERATIONS}; first {ms[0]:.0f} ms), resumed "
+        f"{timing['resumed_ms_per_step']:.1f} ms/step; peak memory "
+        f"{timing['peak_gib']:.2f} GiB; losses first {losses[0]} last {losses[-1]}; "
+        f"splat launches {launches}")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "timing": timing}
+
+
+def phase_fid(dev, gen_path, splat3_backward):
+    """FID and the train-time evaluation, cell fid-eval: the full Inception
+    on the card against the CPU, the Frechet distance on the card against
+    the CPU (and its gap to a float64 eigenvalue reference), then, with
+    NFI_INCEPTION_WEIGHTS naming a pytorch-fid-named file of those random
+    weights, train.main with one evaluation (plain, then --use_encoder)
+    and invert.main with FID on phase 6's files. Returns the launches by
+    path and the timings."""
+    import copy
+    import shutil
+
+    import torch
+
+    from nerf_from_image_tpu_torch import invert, train
+    from nerf_from_image_tpu_torch.engine import gan, gan_eval
+    from nerf_from_image_tpu_torch.metrics import fid
+    from nerf_from_image_tpu_torch.models.inception import FIDInceptionV3
+
+    root = os.path.join(REPO, "build", "fid_drive")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    inception = FIDInceptionV3(device=dev, generator=torch.Generator().manual_seed(11))
+    x = torch.rand((2, RES, RES, 3), generator=torch.Generator().manual_seed(12))
+    with torch.no_grad():
+        got = inception(x.to(dev)).cpu()
+        want = copy.deepcopy(inception).cpu()(x)
+    inc_abs, inc_rel = rel_err(got, want)
+    log(f"FIDInceptionV3 (random weights, 2 images of {RES}^2 resized to 299^2): card vs CPU "
+        f"max abs err {inc_abs:.3e}, rel {inc_rel:.3e} of the largest activation "
+        f"{float(want.abs().max()):.3e}")
+    if not inc_rel < INCEPTION_TOL:
+        raise AssertionError(f"Inception card vs CPU: {inc_rel:.3e}")
+    batch = torch.rand((32, RES, RES, 3), generator=torch.Generator().manual_seed(13),
+                       device="cpu").to(dev)
+    with torch.no_grad():
+        inception_ms = last_and_median_ms(lambda: inception(batch), dev, iters=5)[1]
+
+    # Two 2048-d statistics of Inception activations (64 and 96 images:
+    # both covariances singular), in the drivers' dtype.
+    draw = torch.Generator(device=dev).manual_seed(14)
+    with torch.no_grad():
+        acts = [inception(torch.rand((n, RES, RES, 3), generator=draw, device=dev) * scale
+                          + shift)
+                for n, scale, shift in ((64, 1.0, 0.0), (96, 0.6, 0.2))]
+    stats = [fid.calculate_stats(a.to(fid.FID_DTYPE)) for a in acts]
+    on_card = float(fid.frechet_distance(*stats[0], *stats[1]))
+    fid_ms = last_and_median_ms(lambda: fid.frechet_distance(*stats[0], *stats[1]), dev,
+                                iters=3)[1]
+    cpu_stats = [tuple(t.cpu() for t in st) for st in stats]
+    t = time.perf_counter()
+    on_cpu = float(fid.frechet_distance(*cpu_stats[0], *cpu_stats[1]))
+    cpu_s = time.perf_counter() - t
+    (m1, s1), (m2, s2) = ([t.numpy() for t in st] for st in cpu_stats)
+    eye = 1e-6 * np.eye(len(m1))
+    e2, v2 = np.linalg.eigh(s2 + eye)
+    half = (v2 * np.sqrt(np.clip(e2, 0, None))) @ v2.T
+    tr = float(np.sum(np.sqrt(np.clip(np.linalg.eigvalsh(half @ (s1 + eye) @ half), 0, None))))
+    reference = float(np.sum((m1 - m2) ** 2) + np.trace(s1) + np.trace(s2) - 2 * tr)
+    fid_gate = abs(on_card - on_cpu) / max(abs(on_cpu), 1e-12)
+    log(f"Frechet distance (2048-d, 64 vs 96 images, {fid.FID_DTYPE}): card {on_card:.6f}, "
+        f"CPU {on_cpu:.6f} (rel {fid_gate:.3e}; {cpu_s:.1f} s), float64 eigenvalue "
+        f"reference {reference:.6f} (gap {abs(on_card - reference):.3e}); card "
+        f"{fid_ms:.1f} ms; Inception {inception_ms:.1f} ms per batch of 32 at {RES}^2")
+    if not (np.isfinite(on_card) and fid_gate < FID_TOL):
+        raise AssertionError(f"FID card {on_card} vs CPU {on_cpu}")
+    weights = os.path.join(root, "pt_inception.pth")
+    state = {k: v.cpu() for k, v in inception.state_dict().items()}
+    state.update({"fc.weight": torch.zeros((1008, 2048)), "fc.bias": torch.zeros(1008)})
+    torch.save(state, weights)
+    del inception, acts, stats, batch, state
+    torch.cuda.empty_cache()
+
+    os.environ["NFI_INCEPTION_WEIGHTS"] = weights
+    launches, results, evals = {}, {}, []
+    make = train.make_train_eval
+
+    def timed_eval(*args, **kwargs):
+        evaluate = make(*args, **kwargs)
+
+        def run():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = evaluate()
+            torch.cuda.synchronize()
+            evals.append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    train.make_train_eval = timed_eval
+    g_steps = []
+    restore_g = _timed(gan, "g_step", g_steps)
+    try:
+        common = ["--dataset", "synthetic", "--resolution", str(RES), "--batch_size",
+                  str(TRAIN_BATCH), "--plane_splat", "true", "--max_images", str(FID_IMAGES),
+                  "--sdf_pretrain_steps", "2", "--iterations", str(FID_ITERATIONS),
+                  "--display_every", str(FID_ITERATIONS)]
+        for path, extra in (("train_fid", []), ("train_use_encoder", ["--use_encoder"])):
+            run_root = os.path.join(root, path)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            del g_steps[:]
+            splat3_backward.launches = 0  # this path starts here
+            t = time.perf_counter()
+            run = train.main(common + extra + ["--root_path", run_root])
+            torch.cuda.synchronize()
+            launches[path] = splat3_backward.launches
+            n_g = len(g_steps)
+            if launches[path] != K1_PER_RENDER * n_g or n_g != (FID_ITERATIONS + 1) // 2:
+                raise AssertionError(f"{path}: {launches[path]} splat launches in {n_g} G "
+                                     f"steps, expected {K1_PER_RENDER} a G step")
+            scalars = run["eval"]
+            if not all(np.isfinite(v) for v in scalars.values()):
+                raise AssertionError(f"{path}: evaluation {scalars}")
+            if path == "train_use_encoder":
+                names = {k for k in scalars if k.startswith("reconstruction/")}
+                need = {f"reconstruction/{m}{s}_front" for m in ("psnr", "ssim", "lpips")
+                        for s in ("", "_test")} | {
+                    f"reconstruction/fid_{v}view{s}" for v in ("front", "random")
+                    for s in ("", "_test")}
+                best = os.path.join(run["checkpoint_dir"], "best_fid.json")
+                if names != need or not os.path.exists(best):
+                    raise AssertionError(f"{path}: scalars {sorted(names)}")
+            else:
+                if set(scalars) != {"fid", "generation/fid_untrunc"}:
+                    raise AssertionError(f"{path}: scalars {sorted(scalars)}")
+            results[path] = {"eval_ms": evals[-1], "main_s": time.perf_counter() - t,
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                             "fid": scalars["fid"], "g_steps": n_g}
+            log(f"{path} (B={TRAIN_BATCH}, {FID_IMAGES} eval images of {RES}^2, "
+                f"{FID_ITERATIONS} iterations, one evaluation): evaluation "
+                f"{evals[-1]:.0f} ms, FID {scalars['fid']:.4f}; main() "
+                f"{results[path]['main_s']:.1f} s; peak memory "
+                f"{results[path]['peak_gib']:.2f} GiB; splat launches {launches[path]}")
+            log("  " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(scalars.items())))
+    finally:
+        restore_g()
+        train.make_train_eval = make
+
+    # The inversion driver with FID, on phase 6's files.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    splat3_backward.launches = 0  # this path starts here
+    t = time.perf_counter()
+    stats = invert.main(["--dataset", "synthetic", "--resolution", str(RES), "--batch_size",
+                         "32", "--max_images", str(DRIVE_IMAGES), "--plane_splat", "true",
+                         "--query_chunk", "0", "--inv_steps", str(FID_INV_STEPS),
+                         "--resume_from", gen_path, "--root_path", os.path.join(root, "inv")])
+    torch.cuda.synchronize()
+    launches["invert_fid"] = splat3_backward.launches
+    want = 2 * FID_INV_STEPS * (DRIVE_IMAGES // HYBRID_BATCH)
+    if launches["invert_fid"] != want:
+        raise AssertionError(f"invert with FID: {launches['invert_fid']} launches, want {want}")
+    with open(os.path.join(stats["report_dir"], "report.txt")) as f:
+        fids = [float(line.split(": ")[1]) for line in f if line.strip().startswith("fid_")]
+    if len(fids) != 4 or not np.isfinite(fids).all():
+        raise AssertionError(f"the inversion report's FIDs: {fids}")
+    results["invert_fid"] = {"main_s": time.perf_counter() - t, "fids": fids,
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"invert with FID ({DRIVE_IMAGES} images, {FID_INV_STEPS} vgg steps): report "
+        f"fid_front/fid_random at steps 0 and {FID_INV_STEPS} {fids}; main() "
+        f"{results['invert_fid']['main_s']:.1f} s; peak memory "
+        f"{results['invert_fid']['peak_gib']:.2f} GiB; splat launches {launches['invert_fid']}")
+    os.environ.pop("NFI_INCEPTION_WEIGHTS")
+    torch.cuda.empty_cache()
+    results.update({"inception_rel_err": inc_rel, "inception_ms_per_32": inception_ms,
+                    "fid_ms": fid_ms, "fid_card_vs_cpu": fid_gate,
+                    "fid_float64_gap": abs(on_card - reference)})
+    return {"launches": launches, "timing": results}
+
+
 def main() -> int:
     import torch
 
@@ -1440,12 +1733,19 @@ def main() -> int:
     paths.update(training.pop("launches"))
     summary["max_abs_err"] = max(summary["max_abs_err"], training.pop("k1_max_abs_err"))
     summary["max_rel_err"] = max(summary["max_rel_err"], training.pop("k1_max_rel_err"))
+    encoder_training = phase_train_encoder(
+        os.path.join(drive_root, "g_synthetic.pth"), splat3_backward)
+    paths.update(encoder_training.pop("launches"))
+    fid_eval = phase_fid(dev, os.path.join(drive_root, "g_synthetic.pth"), splat3_backward)
+    paths.update(fid_eval.pop("launches"))
     summary["launches"] = sum(paths.values())
     summary["launches_by_path"] = paths
     summary["hybrid_inversion"] = hybrid
     summary["invert_driver"] = driver
     summary["driving"] = driving
     summary["train"] = training
+    summary["train_encoder"] = encoder_training["timing"]
+    summary["fid_eval"] = fid_eval["timing"]
     torch.cuda.empty_cache()
 
     probes = phase_probes(dev)

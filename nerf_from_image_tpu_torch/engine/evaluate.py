@@ -3,13 +3,12 @@
 Counterpart of nerf_from_image_tpu/engine/evaluate.py. At each checkpoint
 step the recovered (w, pose) is rendered from the front view (and from
 the paired novel view when one is given), and PSNR, SSIM, IoU, LPIPS and
-the rotation error are taken per sample, without gradients. The report is
-a host-side dict of numpy arrays written as .npz plus a .txt summary, in
-the JAX package's format: a report saved by either package loads in the
-other.
-
-Inception activations, and so FID, are not in the port yet: an eval
-function or a report asked for them raises.
+the rotation error are taken per sample, without gradients; with an
+Inception model, the front and novel views' activations too, from which
+the report's summary takes fid_front and fid_random against real
+statistics. The report is a host-side dict of numpy arrays written as
+.npz plus a .txt summary, in the JAX package's format: a report saved by
+either package loads in the other.
 """
 
 from __future__ import annotations
@@ -28,14 +27,11 @@ from nerf_from_image_tpu_torch.engine.inversion import (
     build_camera,
 )
 from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
+from nerf_from_image_tpu_torch.metrics import fid as fid_mod
 from nerf_from_image_tpu_torch.metrics import image as image_metrics
 from nerf_from_image_tpu_torch.pose.pose import rotation_matrix_distance
 from nerf_from_image_tpu_torch.utils import fileio
 from nerf_from_image_tpu_torch.utils.device import check_on_device, resolve_device
-
-_NO_FID = ("Inception activations (FID) are not ported yet; they come with "
-           "models/inception.py and metrics/fid.py")
-
 
 def make_eval_fn(
     config: InversionConfig,
@@ -55,13 +51,15 @@ def make_eval_fn(
 
     `z` is the pre-gain latent, as make_invert_fn takes it; target_img
     [B, H, W, 3 or 4] in [-1, 1], a fourth channel being the mask (IoU
-    when `has_mask`). `lpips` is models/lpips.py's LPIPS. Renders are
-    deterministic and take no gradient. Tensors must lie on `device`
-    ('cuda' by default, which needs a card).
+    when `has_mask`). `lpips` is models/lpips.py's LPIPS. With
+    `inception_model` (models/inception.py's FIDInceptionV3) the result
+    also holds 'inception_activations_front' [B, 2048] and, with a
+    `perm_pose`, 'inception_activations_random'; the novel view is then
+    rendered even without `perm_target`. Renders are deterministic and
+    take no gradient. Tensors must lie on `device` ('cuda' by default,
+    which needs a card).
     """
     dev = resolve_device(device)
-    if inception_model is not None:
-        raise NotImplementedError(_NO_FID)
 
     def render_view(z, cam, focal, center, bbox):
         out, _ = render(
@@ -93,16 +91,22 @@ def make_eval_fn(
         res["lpips"] = lpips(pred, target).reshape(-1)
         if gt_cam2world is not None:
             res["rot_error"] = rotation_matrix_distance(cam, gt_cam2world)
+        if inception_model is not None:
+            res["inception_activations_front"] = inception_model(pred / 2 + 0.5)
 
-        if perm_pose is not None and perm_target is not None:
+        if perm_pose is not None and (perm_target is not None
+                                      or inception_model is not None):
             out_r = render_view(z, perm_pose, perm_focal, perm_center, perm_bbox)
             pred_r = torch.clamp(out_r.rgb[..., :3], -1.0, 1.0)
-            target_r = perm_target[..., :3]
-            res["psnr_random"] = image_metrics.psnr(
-                pred_r / 2 + 0.5, target_r / 2 + 0.5, reduction="none")
-            res["ssim_random"] = image_metrics.ssim(
-                pred_r / 2 + 0.5, target_r / 2 + 0.5, reduction="none")
-            res["lpips_random"] = lpips(pred_r, target_r).reshape(-1)
+            if perm_target is not None:
+                target_r = perm_target[..., :3]
+                res["psnr_random"] = image_metrics.psnr(
+                    pred_r / 2 + 0.5, target_r / 2 + 0.5, reduction="none")
+                res["ssim_random"] = image_metrics.ssim(
+                    pred_r / 2 + 0.5, target_r / 2 + 0.5, reduction="none")
+                res["lpips_random"] = lpips(pred_r, target_r).reshape(-1)
+            if inception_model is not None:
+                res["inception_activations_random"] = inception_model(pred_r / 2 + 0.5)
         return res
 
     return eval_fn
@@ -168,9 +172,14 @@ class InversionReport:
         }
 
     def summary(self, fid_stats_real=None) -> str:
-        """One line per metric and checkpoint: its mean, with its note."""
+        """One line per metric and checkpoint: its mean, with its note; with
+        the real statistics (mu, sigma), fid_front and fid_random of each
+        checkpoint's accumulated activations (two images or more), computed
+        in metrics/fid.py's FID_DTYPE where the statistics lie (tensors on
+        the card: there)."""
+        real = None
         if fid_stats_real is not None:
-            raise NotImplementedError(_NO_FID)
+            real = [torch.as_tensor(s).to(fid_mod.FID_DTYPE) for s in fid_stats_real]
         lines = []
         for step, item in self.consolidated().items():
             lines.append(f"[checkpoint step {step}]")
@@ -183,13 +192,22 @@ class InversionReport:
                     "",
                 )
                 lines.append(f"  {k}: {float(np.mean(v)):.5f}{note}")
+            if real is not None:
+                for which in ("front", "random"):
+                    key = f"inception_activations_{which}"
+                    if key in item and len(item[key]) > 1:
+                        mu, sigma = fid_mod.calculate_stats(torch.as_tensor(
+                            np.asarray(item[key]), dtype=fid_mod.FID_DTYPE,
+                            device=real[0].device))
+                        fid_val = float(fid_mod.frechet_distance(mu, sigma, *real))
+                        lines.append(f"  fid_{which}: {fid_val:.5f}")
         return "\n".join(lines)
 
     def save(self, path_prefix: str, fid_stats_real=None):
         """Writes <path_prefix>.npz (keys 'step<N>/<metric>', and
         '__metric_notes__' as JSON) and <path_prefix>.txt. The .npz is
         written to a temporary file first and moved over the old one, so
-        a crash leaves the previous report whole."""
+        a crash leaves the previous report whole. Returns the summary."""
         summary = self.summary(fid_stats_real)
         fileio.mkdir(os.path.dirname(path_prefix) or ".")
         flat = {}
@@ -204,6 +222,7 @@ class InversionReport:
         fileio.replace_file(tmp, path_prefix + ".npz")
         with fileio.open_file(path_prefix + ".txt", "w") as f:
             f.write(summary + "\n")
+        return summary
 
     def num_samples(self, metric: str = "psnr") -> int:
         """Images accumulated so far at the first checkpoint (the resume

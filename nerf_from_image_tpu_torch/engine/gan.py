@@ -128,8 +128,9 @@ class Optimizer:
         self.count = count_inc
 
     def state_dict(self) -> Dict[str, object]:
-        return {"count": self.count, "mu": [t.clone() for t in self.mu],
-                "nu": [t.clone() for t in self.nu]}
+        """The count and CPU copies of the moments (a checkpoint's form)."""
+        return {"count": self.count, "mu": [t.to("cpu", copy=True) for t in self.mu],
+                "nu": [t.to("cpu", copy=True) for t in self.nu]}
 
     def load_state_dict(self, state: Dict[str, object]) -> None:
         self.count = int(state["count"])
@@ -180,8 +181,7 @@ class GANState:
                                                 for k, v in module.state_dict().items()}
 
         def opt(o):
-            return None if o is None else {k: ([t.cpu() for t in v] if isinstance(v, list)
-                                               else v) for k, v in o.state_dict().items()}
+            return None if o is None else o.state_dict()
 
         return {"model": cpu(self.model), "model_ema": cpu(self.ema),
                 "discriminator": cpu(self.disc), "discriminator2": cpu(self.disc2),

@@ -36,8 +36,9 @@ from nerf_from_image_tpu_torch.utils.device import check_on_device, resolve_devi
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Rendering configuration: the JAX package's fields that the port
-    implements so far (still to come: semantic maps and ray sharding)."""
+    """Rendering configuration: the JAX package's fields but its ray
+    sharding (more than one device) and its TPU splat settings
+    (`pack_planes`, `splat_window`, `splat_save_rows`)."""
 
     resolution: int = 128
     depth_samples_per_ray: int = 64
@@ -48,7 +49,10 @@ class RenderConfig:
     use_viewdir: bool = False
     # SDF normal map (Generator.sample_field 'normals'); evaluation only.
     compute_normals: bool = False
-    # Canonical coordinate map, returned in the semantics slot.
+    # Semantic class probabilities (a semantic generator's palette).
+    compute_semantics: bool = False
+    # Canonical coordinate map, returned in the semantics slot (it takes
+    # the slot over from compute_semantics).
     compute_coords: bool = False
     # Field queries run in chunks of this many points per batch element,
     # recomputed in the backward (torch.utils.checkpoint); None = one call.
@@ -74,11 +78,14 @@ def prepare_rays(
     focal_length: Optional[torch.Tensor],
     center: Optional[torch.Tensor] = None,
     bbox: Optional[torch.Tensor] = None,
+    height: Optional[int] = None,
+    width: Optional[int] = None,
 ):
-    """Ray bundle [B, H, W, 3] x 2 (normalized directions) + near/far [B, H, W]."""
+    """Ray bundle [B, H, W, 3] x 2 (normalized directions) + near/far [B, H, W];
+    H and W are `height` and `width`, config.resolution where None."""
     ray_origins, ray_directions = rays.get_ray_bundle(
-        config.resolution, config.resolution, focal_length, tform_cam2world,
-        bbox, center,
+        height or config.resolution, width or config.resolution, focal_length,
+        tform_cam2world, bbox, center,
     )
     ray_directions = rays.normalize_directions(ray_directions)
     near, far = aabb.compute_near_far_planes(
@@ -122,6 +129,8 @@ def render_field(
     requests = ("sigma", "rgb")
     if config.compute_normals:
         requests += ("normals",)
+    if config.compute_semantics:
+        requests += ("semantics",)
     if config.compute_coords:
         requests += ("coords",)
 
@@ -272,6 +281,8 @@ def render(
     label: Optional[torch.Tensor] = None,
     image: Optional[torch.Tensor] = None,
     noise_mode: str = "none",
+    height: Optional[int] = None,
+    width: Optional[int] = None,
 ) -> Tuple[compositing.CompositeOutput, Dict[str, Any]]:
     """Full render from latents and camera.
 
@@ -280,6 +291,7 @@ def render(
     generator; [B, 1, w_dim] is broadcast to every layer; [B, num_ws,
     w_dim] is used as it is. `noise_mode` ('none', 'const' or 'random',
     drawn from `generator`) is the synthesis network's StyleGAN noise.
+    The image is `height` x `width` rays (config.resolution where None).
     Every tensor must lie on `device` ('cuda' by default, which needs a
     card; 'cpu' runs the kernels' plain versions).
     """
@@ -288,7 +300,7 @@ def render(
                     focal_length=focal_length, latent=latent, center=center,
                     bbox=bbox, label=label, image=image)
     ray_origins, ray_directions, near, far = prepare_rays(
-        config, tform_cam2world, focal_length, center, bbox
+        config, tform_cam2world, focal_length, center, bbox, height, width
     )
 
     if latent.dim() == 3:

@@ -9,6 +9,12 @@ by Adam steps through the render (engine/inversion.py), scores steps 0
 and n (engine/evaluate.py), and writes the report under
 <root_path>/reports/inv_<dataset>/ (resumable from report_checkpoint.npz)
 or, with --inv_export_demo_sample, one demo composite under outputs/.
+When NFI_INCEPTION_WEIGHTS names pytorch-fid's Inception weights (and the
+run is not a demo export), the evaluations also take the renders'
+Inception activations, and the report's summary gives fid_front and
+fid_random against the train-eval split's real statistics.
+--inv_train_coord_only hands the command line to the encoder distillation
+driver (train_encoder.py) instead.
 
 Example (random weights, on the CPU):
   python -m nerf_from_image_tpu_torch.invert --dataset synthetic \\
@@ -16,7 +22,6 @@ Example (random weights, on the CPU):
       --device cpu
 
 Not ported yet, and refused with an error naming their ROADMAP.md item:
-FID (NFI_INCEPTION_WEIGHTS naming a file), --inv_train_coord_only,
 orbax checkpoints (a --resume_from or --coord_resume_from that is not a
 .pth file) and more than one device (--chips, --gpus, --multihost).
 """
@@ -100,21 +105,6 @@ def refuse_multi_device(args) -> None:
             "come with ROADMAP.md section 1 item 8 (scale and persistence)")
 
 
-def _refuse_unported(args) -> None:
-    """Raises for the requests whose parts are not ported yet."""
-    if args.inv_train_coord_only:
-        raise NotImplementedError(
-            "--inv_train_coord_only trains the bootstrap encoder, which is not "
-            "ported yet (ROADMAP.md section 1 item 6, encoder distillation)")
-    refuse_multi_device(args)
-    inception_weights = os.environ.get("NFI_INCEPTION_WEIGHTS")
-    if (not args.inv_export_demo_sample and inception_weights
-            and os.path.exists(inception_weights)):
-        raise NotImplementedError(
-            "NFI_INCEPTION_WEIGHTS names a file, which asks for FID; FID is not "
-            "ported yet (ROADMAP.md section 1 item 7). Unset it to run without FID")
-
-
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -139,6 +129,7 @@ def main(argv=None) -> Dict[str, object]:
         compute_view_perm,
     )
     from nerf_from_image_tpu_torch.engine import evaluate as eval_mod
+    from nerf_from_image_tpu_torch.engine import gan_eval
     from nerf_from_image_tpu_torch.engine.inversion import make_invert_fn
     from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
     from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
@@ -157,7 +148,13 @@ def main(argv=None) -> Dict[str, object]:
     )
 
     args = arguments.parse_args(argv)
-    _refuse_unported(args)
+    if args.inv_train_coord_only:
+        # Train the bootstrap encoder and exit; encoder training has its own
+        # driver.
+        from nerf_from_image_tpu_torch import train_encoder
+
+        return train_encoder.main(argv)
+    refuse_multi_device(args)
     dev = resolve_device(args.device)
     set_strict_f32()  # the reference pins f32
     if args.dataset == "autodetect":
@@ -209,6 +206,14 @@ def main(argv=None) -> Dict[str, object]:
         print("Loaded encoder from", args.coord_resume_from)
     focal_guesses = get_focal_guesses(train_split.focal_length)
 
+    # FID over the inversion outputs, with pytorch-fid's Inception weights
+    # from NFI_INCEPTION_WEIGHTS; a demo export takes none.
+    inception = None
+    inception_weights = None if args.inv_export_demo_sample else gan_eval.inception_weights_path()
+    if inception_weights:
+        inception = gan_eval.load_fid_inception(inception_weights, dev)
+        print("FID enabled (inception weights:", inception_weights + ")")
+
     n_steps = args.inv_steps or (10 if args.inv_gain_z >= 10 else 30)
     if args.inv_encoder_only:
         # Encoder-only evaluation: no optimization (reference:
@@ -245,7 +250,8 @@ def main(argv=None) -> Dict[str, object]:
         else dataclasses.replace(render_config, depth_samples_per_ray=128)
     )
     eval_fn = eval_mod.make_eval_fn(inv_config, eval_render_config, model, lpips,
-                                    has_mask=config_ds.has_mask, device=dev)
+                                    inception_model=inception, has_mask=config_ds.has_mask,
+                                    device=dev)
 
     # Average w init (reference: run.py:1852-1853).
     z_avg = model.average_w(generator=torch.Generator(device=dev).manual_seed(2))
@@ -476,8 +482,12 @@ def main(argv=None) -> Dict[str, object]:
     if demo_mode:
         # No consolidated report in demo mode (reference: run.py:2338).
         return stats
-    report.save(os.path.join(report_dir, "report"))
-    print(report.summary())
+    # The real images' statistics for the front and random FIDs.
+    fid_stats_real = None
+    if inception is not None:
+        fid_stats_real = gan_eval.compute_real_fid_stats(
+            inception, train_eval_split.images[..., :3], device=dev)
+    print(report.save(os.path.join(report_dir, "report"), fid_stats_real))
     print("Report written to", report_dir)
     return stats
 

@@ -12,6 +12,19 @@ checkpoint_<N>.pth every 50,000 and at the end. A checkpoint's
 'model_ema' is the EMA generator in the reference's names, which the
 inversion driver's --resume_from reads.
 
+Every --display_every iterations the train-time evaluation runs
+(engine/gan_eval.py) when NFI_INCEPTION_WEIGHTS names pytorch-fid's
+Inception weights or under --use_encoder: the generation FID of the
+fixed z_fid latents at the train-eval split's poses ('fid',
+'generation/fid_untrunc'), or in encoder-conditional mode the
+reconstruction metrics of the front and random views
+('reconstruction/{psnr,ssim,lpips,iou}[_test]_{front,random}', and with
+Inception 'reconstruction/fid_{front,random}view[_test]'), on the
+train-eval split and, where the dataset has one, the test split; the
+first batch's renders go to the 'img/eval_{rgb,depth,mask}' grids. A new
+best FID saves checkpoint_best.pth and best_fid.json, which a resumed run
+reads back.
+
 Batches come from StepIndexedSampler draws 4i, 4i+1 (and 4i+2, 4i+3 in
 dual mode) and every random draw of iteration i from one torch.Generator
 seeded from (1234, i) (SDF pretraining step j: (4321, j)), so the run is a
@@ -24,9 +37,7 @@ Example (random weights, on the CPU):
       --sdf_pretrain_steps 2 --device cpu
 
 Not ported yet, and refused at start-up with an error naming their
-ROADMAP.md item: train-time evaluation and FID (NFI_INCEPTION_WEIGHTS
-naming a file, or --use_encoder, whose reconstruction scalars come from
-the evaluation), more than one device (--chips, --gpus, --multihost) and
+ROADMAP.md item: more than one device (--chips, --gpus, --multihost) and
 orbax checkpoints (a --resume_from that is not a .pth file or a
 directory of them).
 """
@@ -34,14 +45,15 @@ directory of them).
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from nerf_from_image_tpu_torch.utils.device import resolve_device, set_strict_f32
+from nerf_from_image_tpu_torch.utils.device import resolve_device, set_strict_f32, to_device
 
 PRINT_ITERATION = 3  # the JAX driver's first print, after its compiles
 
@@ -52,21 +64,86 @@ def seeded_generator(device: torch.device, *key: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed & (2**63 - 1))
 
 
-def _refuse_unported(args) -> None:
-    """Raises for the requests whose parts are not ported yet."""
-    from nerf_from_image_tpu_torch.invert import refuse_multi_device
+def make_train_eval(args, config_ds, train_split, train_eval_split, test_split,
+                    render_config, model, inception_weights: Optional[str],
+                    device) -> Callable[[], Dict[str, object]]:
+    """The training-time evaluate() of the (EMA) generator `model`:
+    a function () -> {scalar name: value, 'fid': the run's FID (the
+    random-view reconstruction FID in encoder mode) or None,
+    'first_batch': the first batch's renders}. Real statistics come from
+    the Inception weights at `inception_weights` (None: no FID)."""
+    from nerf_from_image_tpu_torch.data.splits import (
+        compute_eval_indices,
+        compute_view_perm,
+        draw_eval_latents,
+    )
+    from nerf_from_image_tpu_torch.engine import gan_eval
+    from nerf_from_image_tpu_torch.models.lpips import make_lpips
 
-    refuse_multi_device(args)
-    inception_weights = os.environ.get("NFI_INCEPTION_WEIGHTS")
-    if inception_weights and os.path.exists(inception_weights):
-        raise NotImplementedError(
-            "NFI_INCEPTION_WEIGHTS names a file, which asks for train-time FID; the "
-            "train-time evaluation and FID are not ported yet (ROADMAP.md section 1 "
-            "item 7). Unset it to train without FID")
-    if args.use_encoder:
-        raise NotImplementedError(
-            "--use_encoder training logs the reconstruction metrics of the train-time "
-            "evaluation, which is not ported yet (ROADMAP.md section 1 item 7)")
+    inception = real_stats = test_real_stats = None
+    if inception_weights:
+        inception = gan_eval.load_fid_inception(inception_weights, device)
+        real_stats = gan_eval.compute_real_fid_stats(inception, train_eval_split.images,
+                                                     device=device)
+    eval_indices = compute_eval_indices(train_eval_split)
+    z_fid = draw_eval_latents(len(eval_indices), args.latent_dim)
+    eval_perm = compute_view_perm(eval_indices, config_ds.views_per_object)
+    # The held-out test split: its evaluation indices, their view pairing
+    # and a second z draw.
+    test_eval_indices = test_eval_perm = z_fid_test = None
+    if args.use_encoder and config_ds.views_per_object_test and test_split is not None \
+            and len(test_split):
+        test_eval_indices = compute_eval_indices(test_split)
+        test_eval_perm = compute_view_perm(test_eval_indices, config_ds.views_per_object_test)
+        z_fid_test = draw_eval_latents(len(test_eval_perm), args.latent_dim, seed=4322)
+        print(f"Evaluating test set on {len(test_eval_indices)} images")
+        if inception is not None:
+            test_real_stats = gan_eval.compute_real_fid_stats(inception, test_split.images,
+                                                              device=device)
+    # Encoder-conditional reconstructions are also scored with LPIPS.
+    lpips = make_lpips(torch.Generator().manual_seed(98), device=device) \
+        if args.use_encoder else None
+    recon_fn = gan_eval.make_recon_eval_fn(render_config, model, inception, lpips, device)
+
+    def run(split, indices, z, stats, **kw):
+        return gan_eval.evaluate_recon(recon_fn, z, split, indices, stats,
+                                       use_labels=args.use_class, device=device, **kw)
+
+    def evaluate() -> Dict[str, object]:
+        if not args.use_encoder:
+            r = run(train_eval_split, eval_indices, z_fid, real_stats)
+            return {"fid": r.get("fid"), "generation/fid_untrunc": r.get("fid"),
+                    "first_batch": r["first_batch"]}
+
+        out: Dict[str, object] = {}
+
+        def run_mode(split, indices, perm, z, mode, views, inputs, suffix, stats):
+            r = run(split, indices, z, stats, recon_mode=mode,
+                    perm_indices=perm if mode == "random" else None,
+                    views_per_object=views, input_images=inputs)
+            for k, v in r.items():
+                if k not in ("first_batch", "n_images", "fid"):
+                    out[f"reconstruction/{k}{suffix}_{mode}"] = v
+            if stats is not None and r.get("fid") is not None:
+                out[f"reconstruction/fid_{mode}view{suffix}"] = r["fid"]
+            return r
+
+        rf = run_mode(train_eval_split, eval_indices, eval_perm, z_fid, "front",
+                      config_ds.views_per_object, train_split.images, "", real_stats)
+        rr = run_mode(train_eval_split, eval_indices, eval_perm, z_fid, "random",
+                      config_ds.views_per_object, train_split.images, "", real_stats)
+        out["first_batch"] = rf["first_batch"]
+        # The run's FID is the random-view reconstruction FID.
+        out["fid"] = rr.get("fid", rf.get("fid"))
+        if test_eval_indices is not None:
+            # The test split's FIDs are logged too (PARITY.md section 2.6).
+            for mode in ("front", "random"):
+                run_mode(test_split, test_eval_indices, test_eval_perm, z_fid_test, mode,
+                         config_ds.views_per_object_test, test_split.images, "_test",
+                         test_real_stats)
+        return out
+
+    return evaluate
 
 
 def main(argv=None) -> Dict[str, object]:
@@ -74,7 +151,8 @@ def main(argv=None) -> Dict[str, object]:
     when None). Returns the run: {'start_iteration', 'iterations',
     'seconds' (wall time of the GAN loop, up to a device synchronize at
     its end), 'pretrain_steps' (SDF pretraining steps run), 'metrics'
-    (the last G and D steps', as floats), 'checkpoint_dir',
+    (the last G and D steps', as floats), 'eval' (the last train-time
+    evaluation's scalars, 'fid' included), 'best_fid', 'checkpoint_dir',
     'last_checkpoint'}. As the JAX driver does, the loop reads the
     metrics from the device only at print iterations."""
     from nerf_from_image_tpu_torch import arguments
@@ -94,7 +172,10 @@ def main(argv=None) -> Dict[str, object]:
         from nerf_from_image_tpu_torch import invert
 
         return invert.main(argv)
-    _refuse_unported(args)
+    from nerf_from_image_tpu_torch.engine.gan_eval import inception_weights_path
+    from nerf_from_image_tpu_torch.invert import refuse_multi_device
+
+    refuse_multi_device(args)
     if args.resume_from:
         if not os.path.exists(args.resume_from):
             raise ValueError(f"Specified checkpoint {args.resume_from} does not exist!")
@@ -121,9 +202,11 @@ def main(argv=None) -> Dict[str, object]:
     print("Experiment:", experiment_name)
     checkpoint_dir = os.path.join(args.root_path, "gan_checkpoints", experiment_name)
 
-    config_ds, train_split, train_eval_split, _ = load_dataset(
+    config_ds, train_split, train_eval_split, test_split = load_dataset(
         args.dataset, args.data_path, resolution=args.resolution,
-        augment_p=args.augment_p, use_class=args.use_class, max_images=args.max_images)
+        augment_p=args.augment_p, use_class=args.use_class, max_images=args.max_images,
+        # Encoder mode also evaluates the reconstructions of the test split.
+        need_test=bool(args.use_encoder))
 
     if args.perturb_poses > 0:
         # Pose-robustness ablation.
@@ -133,8 +216,19 @@ def main(argv=None) -> Dict[str, object]:
         p_pose, p_focal, p_bbox = perturb_poses(
             train_split.tform_cam2world, args.perturb_poses, train_split.focal_length,
             train_split.bbox)
+        shared = train_eval_split is train_split or (
+            train_eval_split.tform_cam2world.shape == train_split.tform_cam2world.shape)
         train_split = dataclasses.replace(train_split, tform_cam2world=p_pose,
                                           focal_length=p_focal, bbox=p_bbox)
+        if shared:
+            train_eval_split = dataclasses.replace(
+                train_eval_split, tform_cam2world=p_pose, focal_length=p_focal, bbox=p_bbox)
+        else:
+            e_pose, e_focal, e_bbox = perturb_poses(
+                train_eval_split.tform_cam2world, args.perturb_poses,
+                train_eval_split.focal_length, train_eval_split.bbox)
+            train_eval_split = dataclasses.replace(
+                train_eval_split, tform_cam2world=e_pose, focal_length=e_focal, bbox=e_bbox)
     print(f"Device {dev}, dataset {len(train_split)} images")
 
     num_classes = train_split.num_classes if args.use_class else None
@@ -206,7 +300,7 @@ def main(argv=None) -> Dict[str, object]:
         sel = train_split.select(sampler(draw, args.batch_size))
 
         def put(x, dtype=torch.float32):
-            return torch.as_tensor(np.asarray(x), dtype=dtype).to(dev)
+            return to_device(x, dev, dtype)
 
         batch = {"pose": put(sel.tform_cam2world)}
         if sel.focal_length is not None:
@@ -223,17 +317,24 @@ def main(argv=None) -> Dict[str, object]:
 
     pretrain_steps = 0
     if args.use_sdf and start_iter == 0:
-        # Conditional modes pretrain with their conditioning: class mode
-        # random labels.
+        # Conditional modes pretrain with their conditioning: encoder mode
+        # random train images, class mode random labels.
         print("SDF pretraining...")
         pre_opt = gan.make_pretrain_optimizer(model, args.lr_g)
         for i in range(args.sdf_pretrain_steps):
             g = seeded_generator(dev, 4321, i)
-            labels = None
+            images = labels = None
+            if args.use_encoder:
+                idx = torch.randint(0, len(train_split), (args.batch_size,), generator=g,
+                                    device=dev)
+                images = torch.as_tensor(
+                    train_split.select(idx.cpu().numpy()).images[..., :3],
+                    dtype=torch.float32).to(dev)
             if args.use_class:
                 labels = torch.randint(0, train_split.num_classes, (args.batch_size,),
                                        generator=g, device=dev)
-            loss = gan.sdf_pretrain_step(config, model, pre_opt, g, labels=labels)
+            loss = gan.sdf_pretrain_step(config, model, pre_opt, g, cond_image=images,
+                                         labels=labels)
             if i % 100 == 0:
                 print(f"  [{i}] sdf pretrain loss {float(loss):.4f}")
         pretrain_steps = args.sdf_pretrain_steps
@@ -242,6 +343,22 @@ def main(argv=None) -> Dict[str, object]:
         print("SDF pretraining done.")
 
     writer = Logger(os.path.join(args.root_path, "gan_logs", experiment_name))
+    # The train-time evaluation runs where FID is possible (Inception
+    # weights) or encoder-mode reconstruction metrics apply.
+    inception_weights = inception_weights_path()
+    train_eval = None
+    if inception_weights or args.use_encoder:
+        train_eval = make_train_eval(args, config_ds, train_split, train_eval_split,
+                                     test_split, render_config, state.ema,
+                                     inception_weights, dev)
+    # best_fid survives restarts through a sidecar file.
+    best_fid = float("inf")
+    best_fid_path = os.path.join(checkpoint_dir, "best_fid.json")
+    if start_iter > 0 and os.path.exists(best_fid_path):
+        with open(best_fid_path) as f:
+            best_fid = float(json.load(f)["best_fid"])
+        print(f"Restored best_fid {best_fid:.3f}")
+    eval_metrics: Dict[str, object] = {}
     display_every = args.display_every or min(5000, max(50, args.iterations // 10))
     print_every = min(1000, max(10, args.iterations // 40))
     last: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -269,6 +386,10 @@ def main(argv=None) -> Dict[str, object]:
             writer.scalars(m, i, prefix="loss/")
             writer.scalar("img_per_sec", imps, i)
             if (i + 1) % display_every == 0:
+                if train_eval is not None:
+                    eval_metrics = train_eval()
+                    best_fid = _log_eval(writer, eval_metrics, i, best_fid, checkpoint_dir,
+                                         state)
                 last_checkpoint = os.path.join(checkpoint_dir, "checkpoint_latest.pth")
                 ckpt.save_train_checkpoint(last_checkpoint, state.state_dict())
         if (i + 1) % 50000 == 0 or i + 1 == args.iterations:
@@ -283,7 +404,39 @@ def main(argv=None) -> Dict[str, object]:
     return {"start_iteration": start_iter, "iterations": args.iterations,
             "seconds": seconds, "pretrain_steps": pretrain_steps,
             "metrics": {k: {n: float(v) for n, v in m.items()} for k, m in last.items()},
-            "checkpoint_dir": checkpoint_dir, "last_checkpoint": last_checkpoint}
+            "eval": {k: v for k, v in eval_metrics.items() if k != "first_batch"},
+            "best_fid": best_fid, "checkpoint_dir": checkpoint_dir,
+            "last_checkpoint": last_checkpoint}
+
+
+def _log_eval(writer, metrics: Dict[str, object], i: int, best_fid: float,
+              checkpoint_dir: str, state) -> float:
+    """Writes one evaluation's scalars and image grids; on a new best FID
+    saves checkpoint_best.pth and best_fid.json. Returns the best FID."""
+    from nerf_from_image_tpu_torch.utils import checkpoint as ckpt
+
+    fid = metrics.get("fid")
+    if fid is not None:
+        print(f"[{i}] FID {fid:.2f}")
+        writer.scalar("fid", fid, i)
+    for k, v in metrics.items():
+        if k not in ("fid", "first_batch") and v is not None:
+            writer.scalar(k, v, i)
+    fb = metrics.get("first_batch") or {}
+    if "rgb" in fb:
+        writer.images("img/eval_rgb", fb["rgb"], i)
+    if "depth" in fb:
+        d = fb["depth"]
+        writer.images("img/eval_depth", (d / max(float(d.max()), 1e-6))[..., None], i)
+    if "mask" in fb:
+        writer.images("img/eval_mask", fb["mask"][..., None], i)
+    if fid is not None and fid < best_fid:
+        best_fid = fid
+        ckpt.save_train_checkpoint(os.path.join(checkpoint_dir, "checkpoint_best.pth"),
+                                   state.state_dict())
+        with open(os.path.join(checkpoint_dir, "best_fid.json"), "w") as f:
+            json.dump({"best_fid": best_fid}, f)
+    return best_fid
 
 
 if __name__ == "__main__":

@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 
@@ -27,6 +30,14 @@ def check_on_device(dev: torch.device, **tensors) -> None:
                 f"{name} is on {t.device}, expected the entry point's "
                 f"device {dev}"
             )
+
+
+def to_device(x, device, dtype=torch.float32) -> Optional[torch.Tensor]:
+    """A host array (or None, which stays None) as a tensor of `dtype` on
+    `device`."""
+    if x is None:
+        return None
+    return torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
 
 
 def set_strict_f32() -> None:

@@ -113,6 +113,44 @@ def lpips_state_dict_from_jax(variables_np: Dict[str, Any]) -> Dict[str, torch.T
     return sd
 
 
+def inception_rename(path: str) -> str:
+    """JAX FIDInceptionV3 variable path -> pytorch-fid state-dict key, which
+    is this port's parameter name (a copy of the JAX package's
+    `inception_rename`)."""
+    for old, new in (("conv_weight", "conv.weight"), ("bn_weight", "bn.weight"),
+                     ("bn_bias", "bn.bias"), ("bn_running_mean", "bn.running_mean"),
+                     ("bn_running_var", "bn.running_var")):
+        path = path.replace(old, new)
+    return path
+
+
+def inception_state_dict_from_jax(variables_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX `FIDInceptionV3.init(...)` variable tree of numpy arrays
+    (collections 'params' and 'buffers') -> a state_dict for this port's
+    models/inception.py::FIDInceptionV3. Both are OIHW: no re-layout. Load
+    it with `load_state_dict(sd, strict=True)`."""
+    sd: Dict[str, torch.Tensor] = {}
+    for tree in variables_np.values():
+        for path, value in _flatten(tree):
+            key = inception_rename(path)
+            if key in sd:
+                raise KeyError(f"two JAX variables map to the key {key!r}")
+            sd[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return sd
+
+
+def load_inception_weights(path: str) -> Dict[str, torch.Tensor]:
+    """pytorch-fid's `pt_inception` weights (the `.pth` file that
+    NFI_INCEPTION_WEIGHTS names) -> a state_dict for FIDInceptionV3, with
+    the classifier (`fc.*`), the auxiliary head (`AuxLogits.*`) and batch
+    norm's `num_batches_tracked` dropped. Load it with
+    `load_state_dict(sd, strict=True)`."""
+    sd = load_torch_checkpoint(path)
+    return {k: v.float() for k, v in sd.items()
+            if "fc." not in k and "AuxLogits" not in k
+            and not k.endswith("num_batches_tracked")}
+
+
 # Positions of the 13 convolutions in torchvision's VGG16 `features`, which
 # the `lpips` package keeps (split into slice1..slice5).
 _LPIPS_CONV_POSITIONS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)

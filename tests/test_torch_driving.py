@@ -54,7 +54,11 @@ from nerf_from_image_tpu_torch import demo_driving, eval_driving
 from nerf_from_image_tpu_torch.data import driving_fixtures
 from nerf_from_image_tpu_torch.utils import weights
 from tests.test_torch_encoder import DEPTHS, encoder_pair
-from tests.test_torch_generator import release_memory, seeded_generator_variables  # noqa: F401
+from tests.test_torch_generator import (  # noqa: F401
+    built_once,
+    release_memory,
+    seeded_generator_variables,
+)
 from tests.test_torch_hybrid import _lpips_pair
 from tests.test_torch_invert_driver import (
     _jax_init_layout,
@@ -123,8 +127,12 @@ class _PortSynthEncoder(_PortEncoder):
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
     """The shared inputs: the trees, the generator, encoder and LPIPS
-    `.pth` files, and the average w both drivers start from."""
-    root = tmp_path_factory.mktemp("driving_drive")
+    `.pth` files, and the average w both drivers start from; built once a
+    session (the KITTI and demo files share them)."""
+    return built_once(tmp_path_factory, "driving_files", _build_files)
+
+
+def _build_files(root):
     jm = _tiny_jax_generator(latent_dim=64, scene_range=3.0, attention_values=10)
     sd = weights.state_dict_from_jax(seeded_generator_variables(jm, 7))
     torch.save({"model_ema": sd}, root / "g.pth")
@@ -247,8 +255,11 @@ def _assert_composites_agree(got, want, normals_panel=None):
 def nusc_runs(files, tmp_path_factory):
     """One JAX and one port eval_driving run on the nuScenes tree: PnP from
     the (synthetic) encoder over the p3d focal guesses, cross-view columns,
-    composites."""
-    root = tmp_path_factory.mktemp("nusc_runs")
+    composites; once a session."""
+    return built_once(tmp_path_factory, "nusc_runs", lambda root: _nusc_runs(files, root))
+
+
+def _nusc_runs(files, root):
     argv = _argv(files, "nusc") + ["--inv_export_demo_sample", "--max_num_samples", "2",
                                    "--init_pose_type", "pnp_focal_search"]
     jrows, rows = [], []

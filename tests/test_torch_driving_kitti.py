@@ -30,7 +30,7 @@ from tests.test_torch_driving import (  # noqa: F401  (files: a fixture)
     _report,
     files,
 )
-from tests.test_torch_generator import release_memory  # noqa: F401
+from tests.test_torch_generator import built_once, release_memory  # noqa: F401
 from tests.test_torch_pnp import POSE_TOL
 
 KITTI_RES = 16
@@ -40,8 +40,12 @@ KITTI_RES = 16
 def kitti_runs(files, tmp_path_factory):  # noqa: F811
     """One JAX and one port eval_driving run on the KITTI tree's two cars,
     from the ground-truth pose and the mean of the average w's layers (they
-    differ: a per-layer mean is not any one layer), with composites."""
-    root = tmp_path_factory.mktemp("kitti_runs")
+    differ: a per-layer mean is not any one layer), with composites; once
+    a session."""
+    return built_once(tmp_path_factory, "kitti_runs", lambda root: _kitti_runs(files, root))
+
+
+def _kitti_runs(files, root):  # noqa: F811
     argv = _argv(files, "kitti", encoder=False) + [
         "--resolution", str(KITTI_RES), "--init_pose_type", "gt", "--inv_no_split",
         "--inv_export_demo_sample"]

@@ -8,6 +8,9 @@ the same function on the same seeded numpy inputs.
 import ctypes
 import functools
 import gc
+import os
+import pickle
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +35,33 @@ FAST_COMPILE = {"xla_backend_optimization_level": 0}
 def jax_compiled(fn, *args):
     """fn jitted and compiled for `args` with FAST_COMPILE."""
     return jax.jit(fn).lower(*args).compile(compiler_options=FAST_COMPILE)
+
+
+def built_once(tmp_path_factory, name, build):
+    """`build(root)` -> a picklable result, run once per test session for a
+    fixture that several tests share (root: an empty directory the build
+    may fill). Under pytest-xdist every worker that draws one of those
+    tests would build it again: the workers share <basetemp>/../<name>,
+    the first to take the lock builds there and pickles the result, and
+    the others wait for it and load it."""
+    from filelock import FileLock
+
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent  # the session's directory, above the workers'
+    root = base / name
+    done = root / "built.pkl"
+    with FileLock(str(root) + ".lock"):
+        if done.exists():
+            with open(done, "rb") as f:
+                return pickle.load(f)
+        shutil.rmtree(root, ignore_errors=True)  # a build that failed
+        root.mkdir()
+        result = build(root)
+        with open(str(done) + ".tmp", "wb") as f:
+            pickle.dump(result, f)
+        os.replace(str(done) + ".tmp", done)
+        return result
 
 
 # The render-level config of tests/test_splat.py.

@@ -283,6 +283,26 @@ def test_render_with_normals_and_coordinates_matches_jax(grad, monkeypatch):
     assert calls == []
 
 
+def test_render_semantics_at_a_height_and_width_matches_jax():
+    """RenderConfig.compute_semantics (the palette's probabilities in the
+    semantics slot) and a render of height x width rays (24 x 32) against
+    the JAX render, values of every map."""
+    jm, variables, tm = tiny_pair()
+    pose, focal = _cameras()
+    ws = (np.random.default_rng(9).standard_normal((B, jm.num_ws, 64)) * 0.1).astype(np.float32)
+    jcfg = jrender.RenderConfig(compute_semantics=True, **RC_KW)
+    want = jax_compiled(lambda w: jrender.render(jcfg, jm, variables, pose, focal, w,
+                                                 height=24, width=32)[0],
+                        jnp.asarray(ws))(jnp.asarray(ws))
+    with torch.no_grad():
+        got = trender.render(trender.RenderConfig(compute_semantics=True, **RC_KW), tm,
+                             torch.from_numpy(pose), torch.from_numpy(focal),
+                             torch.from_numpy(ws), height=24, width=32, device="cpu")[0]
+    assert got.semantics.shape == (B, 24, 32, 4)
+    for name in ("rgb", "mask", "depth", "semantics"):
+        assert _rel(getattr(got, name), getattr(want, name)) < TOL, name
+
+
 def _report(pkg, metrics):
     report = pkg.InversionReport([0, 2], {"lpips": "(RANDOM-FEATURE)"})
     for step, m in zip((0, 2), metrics):
@@ -291,13 +311,26 @@ def _report(pkg, metrics):
     return report
 
 
+def _fid_lines(summary):
+    return {line: float(line.split(": ")[1]) for line in summary.splitlines()
+            if line.strip().startswith("fid_")}
+
+
 def test_inversion_report_round_trips_between_packages(tmp_path):
     """A report saved by the port loads in the JAX package and the
     reverse: the same .npz keys, arrays, notes and summary text. Resume
-    notes merge alike; FID is refused with a message, not skipped."""
+    notes merge alike. With real statistics both summaries add fid_front
+    and fid_random per checkpoint (f32 in JAX, float64 in the port: within
+    1e-4), and the port's eval function returns the front and novel
+    views' Inception activations."""
     rng = np.random.default_rng(8)
     metrics = [{k: rng.random(B).astype(np.float32) for k in ("psnr", "lpips", "lpips_random")}
                for _ in range(2)]
+    for m in metrics:
+        # 4-d activations of 2 images: rank-deficient statistics, where the
+        # JAX package's f32 iteration still converges at this size.
+        for view in ("front", "random"):
+            m[f"inception_activations_{view}"] = rng.random((B, 4)).astype(np.float32)
     port = _report(teval, [{k: torch.from_numpy(v) for k, v in m.items()} for m in metrics])
     ref = _report(jeval, metrics)
     assert port.summary() == ref.summary()
@@ -321,8 +354,30 @@ def test_inversion_report_round_trips_between_packages(tmp_path):
         p.merge_notes_on_resume(current)
         r.merge_notes_on_resume(current)
         assert p.metric_notes == r.metric_notes
-    with pytest.raises(NotImplementedError, match="FID"):
-        port.summary(fid_stats_real=(np.zeros(4), np.eye(4)))
-    with pytest.raises(NotImplementedError, match="FID"):
-        teval.make_eval_fn(tinv.InversionConfig(), trender.RenderConfig(), tiny_pair()[2],
-                           None, inception_model=object(), device="cpu")
+    real = rng.random((6, 4)).astype(np.float32)
+    mu, sigma = real.mean(0), np.cov(real, rowvar=False).astype(np.float32)
+    got = _fid_lines(port.summary(fid_stats_real=(mu, sigma)))
+    want = _fid_lines(ref.summary(fid_stats_real=(jnp.asarray(mu), jnp.asarray(sigma))))
+    assert len(want) == 4 and [k.split(":")[0] for k in got] == [k.split(":")[0] for k in want]
+    for (_, a), (_, b) in zip(got.items(), want.items()):
+        assert np.isfinite(b) and abs(a - b) < TOL * max(abs(b), 1.0)
+
+    # The eval function: the activations of its own renders, and a novel
+    # view rendered for them even without a novel-view target.
+    stand_in = lambda x: torch.mean(x, dim=(1, 2))  # noqa: E731
+    icfg = tinv.InversionConfig()
+    eval_fn = teval.make_eval_fn(icfg, trender.RenderConfig(**RC_KW), tiny_pair()[2],
+                                 _lpips_pair()[2], inception_model=stand_in, device="cpu")
+    target, pose, focal, z_avg = _targets()
+    pp = tinv.pose_params_from_matrix(torch.from_numpy(pose), torch.from_numpy(focal), False)
+    z = torch.from_numpy(np.repeat(z_avg, B, 0)) / icfg.lr_gain_z
+    res = eval_fn(z, pp, torch.from_numpy(target), perm_pose=torch.from_numpy(pose[::-1].copy()),
+                  perm_focal=torch.from_numpy(focal))
+    with torch.no_grad():
+        out = trender.render(trender.RenderConfig(**RC_KW), tiny_pair()[2],
+                             torch.from_numpy(pose[::-1].copy()), torch.from_numpy(focal),
+                             torch.from_numpy(np.repeat(z_avg, B, 0)), device="cpu")[0]
+    assert "psnr_random" not in res
+    torch.testing.assert_close(res["inception_activations_random"],
+                               stand_in(torch.clamp(out.rgb, -1, 1) / 2 + 0.5))
+    assert res["inception_activations_front"].shape == (B, 3)

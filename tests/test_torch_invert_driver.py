@@ -26,8 +26,8 @@ images), and the rotation error within 0.005 degrees (an arccos near 0:
 one f32 ulp of the cosine moves it ~0.001 degrees at 1 degree). The
 rest runs on the port
 only: an encoder first guess (the mask logit held low, so every pose is
-PnP's dummy pose) with the demo composite, one default 'vgg' step, and
-the requests the port refuses.
+PnP's dummy pose) with the demo composite, one default 'vgg' step, the
+report's FIDs, and the requests the port refuses.
 """
 
 import os
@@ -55,7 +55,11 @@ from nerf_from_image_tpu_torch import invert as tinvert
 from nerf_from_image_tpu_torch.utils import images as timages
 from nerf_from_image_tpu_torch.utils import weights
 from tests.test_torch_encoder import DEPTHS
-from tests.test_torch_generator import release_memory, seeded_generator_variables  # noqa: F401
+from tests.test_torch_generator import (  # noqa: F401
+    built_once,
+    release_memory,
+    seeded_generator_variables,
+)
 from tests.test_torch_hybrid import _encoder_pair, _lpips_pair
 from tests.test_torch_lpips import _lpips_package_state
 
@@ -85,8 +89,12 @@ _JaxGenerator, _PortGenerator = jgen_mod.Generator, tgen_mod.Generator
 def files(tmp_path_factory):
     """The shared inputs: generator .pth (with resample_filter entries),
     encoder .pth (DataParallel 'module.' prefixes), LPIPS weights, the
-    JAX generator's variables and the average w both drivers start from."""
-    root = tmp_path_factory.mktemp("inputs")
+    JAX generator's variables and the average w both drivers start from;
+    built once a session."""
+    return built_once(tmp_path_factory, "invert_files", _build_files)
+
+
+def _build_files(root):
     jm = _tiny_jax_generator(latent_dim=64, scene_range=0.55, attention_values=10)
     variables = seeded_generator_variables(jm, 7)
     sd = weights.state_dict_from_jax(variables)
@@ -273,9 +281,12 @@ def test_driver_report_matches_jax_from_the_start_and_resumed(files, tmp_path, m
 def demo_run(files, tmp_path_factory):
     """One port run with the encoder, the default loss (crop-augmented
     LPIPS, the renders' own sampling jitter) for one step and the demo
-    composite: (first guesses, demo grids, report rows, cwd). The encoder
-    needs 32^2 images (MiT's stage-1 reduction)."""
-    root = tmp_path_factory.mktemp("demo")
+    composite: (first guesses, demo grids, report rows, cwd), once a
+    session. The encoder needs 32^2 images (MiT's stage-1 reduction)."""
+    return built_once(tmp_path_factory, "invert_demo_run", lambda root: _demo_run(files, root))
+
+
+def _demo_run(files, root):
     guesses, grids, rows = [], [], []
     first_guess, save = tinvert.first_guess, timages.save_image_grid
 
@@ -347,24 +358,49 @@ def test_default_vgg_step_is_finite(demo_run):
             assert len(v) == 2 and np.isfinite(v).all(), (step, k)
 
 
-@pytest.mark.parametrize("request_kind", ["fid", "coord_only", "chips", "gpus", "orbax",
-                                          "orbax_encoder", "no_card", "no_mask"])
+def test_report_fid_front_and_random(files, tmp_path, monkeypatch):
+    """With NFI_INCEPTION_WEIGHTS (tests/test_torch_train.py's stand-in for
+    Inception): the evaluations keep the front and novel views'
+    activations, and the report's summary gives fid_front and fid_random
+    at both steps, the Frechet distances of those activations to the
+    train-eval images' statistics."""
+    from nerf_from_image_tpu_torch.engine import gan_eval
+    from nerf_from_image_tpu_torch.data.loaders import load_dataset
+    from nerf_from_image_tpu_torch.metrics import fid
+    from tests.test_torch_train import StandInInception, stand_in_inception
+
+    _port_env(monkeypatch, files, tmp_path)
+    stand_in_inception(monkeypatch, tmp_path)
+    stats = _port_main(["--max_num_samples", "4"], files, tmp_path / "run")
+    assert stats["images"] == 4
+    report_dir = tmp_path / "run" / "reports" / "inv_synthetic"
+    report = _report(report_dir / "report.npz")
+    _, _, split, _ = load_dataset("synthetic", "", resolution=16, max_images=16)
+    real = gan_eval.compute_real_fid_stats(
+        StandInInception(os.environ["NFI_INCEPTION_WEIGHTS"]), split.images, device="cpu")
+    summary = (report_dir / "report.txt").read_text().split("[checkpoint step ")[1:]
+    for step, text in zip(STEPS, summary):
+        lines = dict(line.strip().split(": ") for line in text.splitlines()[1:])
+        for view in ("front", "random"):
+            acts = report[f"step{step}/inception_activations_{view}"]
+            assert acts.shape == (4, 4)
+            want = float(fid.frechet_distance(*fid.calculate_stats(
+                torch.from_numpy(acts).double()), *real))
+            assert np.isfinite(want)
+            assert abs(float(lines[f"fid_{view}"]) - want) <= 5e-6 + 1e-5 * abs(want), view
+
+
+@pytest.mark.parametrize("request_kind", ["chips", "gpus", "orbax", "orbax_encoder",
+                                          "no_card", "no_mask"])
 def test_unported_requests_raise(request_kind, files, tmp_path, monkeypatch):
-    """FID, encoder training, more than one device and orbax checkpoints
-    raise errors naming their ROADMAP.md item; without --device cpu the
-    driver needs a card; a demo image without a mask raises the JAX
-    package's error. None falls back silently."""
+    """More than one device and orbax checkpoints raise errors naming their
+    ROADMAP.md item; without --device cpu the driver needs a card; a demo
+    image without a mask raises the JAX package's error. None falls back
+    silently."""
     _port_env(monkeypatch, files, tmp_path)
     argv = ARGV + ["--root_path", str(tmp_path), "--device", "cpu"]
     match, error = "ROADMAP.md section 1 item 8", NotImplementedError
-    if request_kind == "fid":
-        (tmp_path / "pt_inception.pth").write_bytes(b"")
-        monkeypatch.setenv("NFI_INCEPTION_WEIGHTS", str(tmp_path / "pt_inception.pth"))
-        match = "item 7"
-    elif request_kind == "coord_only":
-        argv += ["--inv_train_coord_only"]
-        match = "item 6"
-    elif request_kind in ("chips", "gpus"):
+    if request_kind in ("chips", "gpus"):
         argv += [f"--{request_kind}", "2"]
     elif request_kind == "orbax":
         argv += ["--resume_from", str(tmp_path)]

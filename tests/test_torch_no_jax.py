@@ -7,6 +7,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -122,14 +123,15 @@ def test_every_module_imports_with_jax_blocked():
                    "utils.tb", "eval_driving", "demo_driving", "evaluate_saved_result",
                    "data.driving", "data.nusc_lite", "data.devkit", "data.driving_fixtures",
                    "engine.gan", "engine.regularizers", "models.discriminator",
-                   "utils.checkpoint", "train"):
+                   "utils.checkpoint", "train", "metrics.fid", "models.inception",
+                   "engine.gan_eval", "engine.coord_regressor", "train_encoder"):
         assert f"nerf_from_image_tpu_torch.{module}" in names, module
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER], cwd=REPO, capture_output=True,
         text=True, timeout=120, env={**os.environ, "PYTHONPATH": REPO},
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) == len(names) >= 33
+    assert int(out.stdout.strip().splitlines()[-1]) == len(names) >= 38
 
 
 def test_driver_imports_and_writes_its_png_without_the_card_machines_missing_packages():
@@ -216,3 +218,18 @@ def test_entry_points_default_to_the_card():
         Discriminator(8, 3, False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--dataset", "synthetic"])
+
+    from nerf_from_image_tpu_torch import invert, train_encoder
+    from nerf_from_image_tpu_torch.engine import coord_regressor, gan_eval
+    from nerf_from_image_tpu_torch.models.inception import FIDInceptionV3
+
+    for build in (lambda: train_encoder.main(["--dataset", "synthetic"]),
+                  lambda: invert.main(["--dataset", "synthetic", "--inv_train_coord_only"]),
+                  FIDInceptionV3,
+                  lambda: gan_eval.make_recon_eval_fn(RenderConfig(), model),
+                  lambda: gan_eval.compute_real_fid_stats(None, np.zeros((1, 4, 4, 3))),
+                  lambda: coord_regressor.coord_train_step(
+                      coord_regressor.CoordRegressorConfig(), RenderConfig(), model, None,
+                      None, {"pose": cam})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()

@@ -172,25 +172,94 @@ def test_checkpoint_loads_into_the_inversion_driver(first_run, tiny, tmp_path):
         assert np.isfinite(report["step1/psnr"]).all()
 
 
-@pytest.mark.parametrize("request_kind", ["encoder", "fid", "chips", "orbax"])
+@pytest.mark.parametrize("request_kind", ["chips", "orbax"])
 def test_unported_requests_raise(request_kind, tiny, tmp_path, monkeypatch):
     argv = BASE + ["--iterations", "2", "--root_path", str(tmp_path)]
-    item = {"encoder": "item 7", "fid": "item 7", "chips": "item 8", "orbax": "item 8"}
-    if request_kind == "encoder":
-        argv += ["--use_encoder"]
-    elif request_kind == "fid":
-        weights = tmp_path / "inception.pth"
-        weights.write_bytes(b"")
-        monkeypatch.setenv("NFI_INCEPTION_WEIGHTS", str(weights))
-    elif request_kind == "chips":
+    if request_kind == "chips":
         argv += ["--chips", "2"]
     else:
         orbax = tmp_path / "checkpoint_4"
         orbax.mkdir()
         argv += ["--resume_from", str(orbax)]
-    with pytest.raises(NotImplementedError, match=item[request_kind]):
+    with pytest.raises(NotImplementedError, match="item 8"):
         train.main(argv)
     assert not tiny
+
+
+class StandInInception(torch.nn.Module):
+    """Inception's place in the driver tests: a per-pixel linear map, tanh
+    and the mean over H and W (4 features), its weight read from the file
+    NFI_INCEPTION_WEIGHTS names."""
+
+    def __init__(self, path, device="cpu"):
+        super().__init__()
+        self.w = torch.load(path)["w"].to(device)
+
+    def forward(self, x):
+        return torch.mean(torch.tanh(x @ self.w), dim=(1, 2))
+
+
+def stand_in_inception(mp, tmp_path):
+    """Points NFI_INCEPTION_WEIGHTS at a stand-in's file and makes the
+    drivers load the stand-in from it."""
+    from nerf_from_image_tpu_torch.engine import gan_eval
+
+    path = str(tmp_path / "pt_inception.pth")
+    torch.save({"w": torch.randn((3, 4), generator=torch.Generator().manual_seed(0))}, path)
+    mp.setenv("NFI_INCEPTION_WEIGHTS", path)
+    mp.setattr(gan_eval, "load_fid_inception", StandInInception)
+
+
+def _recorded_logs(mp):
+    """Records the driver's TensorBoard scalars {tag: value} and image tags."""
+    from nerf_from_image_tpu_torch.utils import tb
+
+    scalars, images = {}, []
+    mp.setattr(tb.Logger, "scalar",
+               lambda self, tag, value, step: scalars.__setitem__(tag, float(value)))
+    mp.setattr(tb.Logger, "images", lambda self, tag, value, step: images.append(tag))
+    return scalars, images
+
+
+# The scalars of the JAX driver's encoder-mode evaluation (train.py:441-477)
+# on the synthetic dataset: RGB images (no IoU), one view an object (no
+# scored random view) and a test split, with Inception weights.
+ENCODER_EVAL = ({f"reconstruction/{m}{s}_front" for m in ("psnr", "ssim", "lpips")
+                 for s in ("", "_test")}
+                | {f"reconstruction/fid_{v}view{s}" for v in ("front", "random")
+                   for s in ("", "_test")})
+
+
+@pytest.mark.parametrize("mode", ["generation", "use_encoder"])
+def test_train_time_evaluation(mode, tiny, tmp_path, monkeypatch):
+    """With Inception weights, two iterations and an evaluation: the
+    generation FID ('fid', 'generation/fid_untrunc'), or under
+    --use_encoder the JAX driver's reconstruction scalars, the eval image
+    grids and a best checkpoint whose best_fid.json a resumed run reads
+    back (and keeps while no evaluation beats it)."""
+    stand_in_inception(monkeypatch, tmp_path)
+    scalars, images = _recorded_logs(monkeypatch)
+    argv = BASE + ["--display_every", "2", "--root_path", str(tmp_path)] + (
+        ["--use_encoder"] if mode == "use_encoder" else [])
+    run = train.main(argv + ["--iterations", "2"])
+    fid = run["eval"]["fid"]
+    assert np.isfinite(fid) and run["best_fid"] == fid == scalars["fid"]
+    assert images == ["img/eval_rgb", "img/eval_depth", "img/eval_mask"]
+    if mode == "generation":
+        assert set(run["eval"]) == {"fid", "generation/fid_untrunc"}
+        assert scalars["generation/fid_untrunc"] == fid
+        return
+    assert set(run["eval"]) == ENCODER_EVAL | {"fid"}
+    assert fid == run["eval"]["reconstruction/fid_randomview"]
+    for tag in ENCODER_EVAL:
+        assert np.isfinite(scalars[tag]), tag
+    best = os.path.join(run["checkpoint_dir"], "best_fid.json")
+    assert os.path.exists(os.path.join(run["checkpoint_dir"], "checkpoint_best.pth"))
+    with open(best, "w") as f:
+        f.write('{"best_fid": 1e-9}')
+    resumed = train.main(argv + ["--iterations", "4", "--resume_from", run["last_checkpoint"]])
+    assert resumed["start_iteration"] == 2 and resumed["best_fid"] == 1e-9
+    assert np.isfinite(resumed["eval"]["fid"])
 
 
 def test_second_derivative_through_the_splat_op_raises():
