@@ -73,8 +73,9 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
  7. The driving evaluation and demo end to end (eval_driving.main and
     demo_driving.main in this process, on phase 6's `.pth` checkpoints):
     under build/driving_drive/, data/driving_fixtures.py writes a nuScenes
-    tree (1600x900 CAM_FRONT frames, 34,000-point LIDAR_TOP sweeps, 2 cars
-    of ~450 and ~60 px in 2 views, a person, Mask-RCNN masks in the
+    tree (1600x900 CAM_FRONT frames, the first of them the committed JPEG
+    of data/jpeg/ as real frames are JPEG, 34,000-point LIDAR_TOP sweeps,
+    2 cars of ~450 and ~60 px in 2 views, a person, Mask-RCNN masks in the
     'labels' schema, the index) and a KITTI tree (1242x375, 120,000-point
     scans, the first two cars of the package's index); the PNG reader is
     timed on a frame. eval_driving on each tree at its defaults (128^2,
@@ -84,9 +85,10 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     objects its report holds; the nuScenes run's first two splat calls
     (B=1) held to the plain version. Every report row finite but the
     KITTI random view's image columns (NaN), composites of 7 panels
-    (nuScenes) and 6 (KITTI). Then demo_driving on the first frame, 5
-    steps: 2 x 5 launches a car, a PNG of 6 panels a car. Prints
-    s/object, ms per part and peak memory.
+    (nuScenes) and 6 (KITTI). Then demo_driving on the first (JPEG)
+    frame, 5 steps: 2 x 5 launches a car, a PNG of 6 panels a car. Prints
+    s/object, ms per part and peak memory. (The KITTI random view's
+    depth: after phase 8.)
  8. GAN training end to end (train.main in this process), cell
     train-synthetic: the bench generator at full width (latent 512, 3
     planes 256^2 x 32, a 10-color palette, SDF) and the pose-conditioned
@@ -103,7 +105,12 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     pretraining launch none. The first G step's first two splat calls are
     held to the plain version. Every loss must be finite; the saved
     checkpoint_10.pth is read by utils/weights.load_reference_generator
-    and rendered once. Prints im/s over the GAN loop (batch x iterations
+    and rendered once; then phase 7's KITTI tree from the true pose
+    (`--init_pose_type gt`, 2 steps) on that checkpoint, whose
+    SDF-pretrained density is near a sphere, so that the random view's
+    render covers reprojected LiDAR points: every depth_error_random row
+    finite and not 0 (phase 7's random generator covers none). Prints
+    im/s over the GAN loop (batch x iterations
     / wall time, as train.main prints it), G- and D-step ms (medians of
     gan.g_step and gan.d_step, each on the host clock between a device
     synchronize before and one after it: the wrappers add the only
@@ -136,7 +143,30 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     phase 6's files with FID on (2 'vgg' steps, 8 launches), its report's
     fid_front and fid_random finite. Prints Inception ms per batch of 32,
     FID ms, evaluation ms, peak memory and the launches.
-11. The splat probes (P1, P2; csrc/splat_probes.cu): every P1 stage and P2
+11. More than one device (parallel/mesh.py) on the one card, in
+    subprocesses of this script (`--parallel-worker`) with a launcher's
+    environment (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE,
+    MASTER_ADDR, MASTER_PORT). First one rank over nccl: train.main (2
+    iterations after 2 SDF pretraining steps, B=8) and invert.main (2
+    'vgg' steps on 16 images, phase 6's generator) through the
+    distributed code, against the same runs in this process: losses and
+    report rows within PAR_W1_TOL, the same launches. Then two ranks
+    sharing the card over gloo against one process: a G and a D step of
+    the bench generator and the 128^2 discriminator at a global batch of
+    8 (4 a rank: the draws are the global draws' rows, the gradients
+    averaged before the clip, minibatch std over the gathered batch), a
+    distillation step of the full MiT-B5 at the same batch, and the
+    ray-sharded bench render (64 of the 128 rows a rank) with its (ws,
+    pose) gradients; values within PAR_VALUE_TOL and gradients within
+    PAR_GRAD_TOL of the largest; each rank's first K1 calls of the G step
+    and of the render held to the plain version; each rank's launches
+    counted in its own process. Prints ms per step and rank, the share of
+    the all-reduces and gathers (each timed between synchronizes), peak
+    memory and launches per rank.
+12. JPEG: the committed fixtures of data/jpeg/ decoded on this host
+    (utils/images.py::read_jpeg; no imageio or PIL here) against
+    imageio's pixels, equal bits, and the 1600x900 frame's decode time.
+13. The splat probes (P1, P2; csrc/splat_probes.cu): every P1 stage and P2
     variant against its plain version at a small shape, every P1 stage at
     three more small shapes at the edges of its launch plan (8 row
     fragments, WX=48, a partial slab and a partly filled ring stage),
@@ -153,7 +183,7 @@ Phases; each raises on failure, so a run that exits 0 passed all of them:
     alone, and, where one exists, one PyTorch call computing the same
     work (profile_splat.library_call). They run after the main path, so
     that no torch.profiler session precedes its timings.
-12. The kernel summary line, the card line, and last the ok line.
+14. The kernel summary line, the card line, and last the ok line.
 
 Weights are random, drawn from fixed seeds. Needs one card; exits non-zero
 without one, or when the package is not next to this file.
@@ -191,6 +221,7 @@ DRIVING_STEPS = max(DRIVING_CHECKPOINTS)
 # Phase 7's trees at the datasets' camera sizes (data/driving_fixtures.py).
 NUSC_SIZE, KITTI_SIZE = (1600, 900), (1242, 375)
 NUSC_LIDAR_POINTS, KITTI_LIDAR_POINTS = 34000, 120000
+KITTI_GT_STEPS = 2  # the KITTI run from the true pose
 PNP_ROT_TOL_DEG = 0.1
 # Phase 8, train-synthetic: B=8 of the README's 32 (the pairwise merge's
 # [B, 128, 128, 64, 64] all-pairs tensors are not chunked).
@@ -207,6 +238,26 @@ ENCODER_ITERATIONS, ENCODER_RESUME = 4, 2
 INCEPTION_TOL = 1e-4  # relative to the largest activation
 FID_TOL = 1e-6  # float64 on both sides
 FID_IMAGES, FID_ITERATIONS, FID_INV_STEPS = 32, 2, 2
+# Phase 11, more than one device on the one card: the drivers' runs at
+# world size 1 (nccl), and the steps at a global batch of PAR_BATCH over
+# two ranks sharing the card (gloo). Tolerances, of the largest value:
+# world size 1 runs the same code as one process (its collectives return
+# at once), within RENDER_REL_TOL before the first optimizer step; after
+# it K1's atomics and cuDNN's backward differ from run to run and Adam's
+# first steps (near sign(g)) carry that on: two runs in one process
+# differed by up to 1.1e-2 (the path-length loss, a variance; an NVIDIA
+# H100 80GB HBM3 at 700 W), so PAR_W1_TOL, which also holds the two ranks'
+# path-length loss.
+# Two ranks of 4 images against one of 8 take other convolution algorithms
+# and sum orders: other values within PAR_VALUE_TOL (measured up to 1.1e-3
+# with the path-length loss, a gradient norm 1.2e-4 between two runs of one
+# process), gradients within PAR_GRAD_TOL (measured 1.9e-3).
+PAR_W1_ITERATIONS = 2
+PAR_BATCH = 8
+PAR_W1_TOL = 5e-2
+PAR_VALUE_TOL = 5e-3
+PAR_GRAD_TOL = 1e-2
+PAR_TIMEOUT_S = 600
 # Lines of the TPU kernels the probe kernels replace.
 P1_KERNEL = "scripts/profile_splat.py:49"
 P2_KERNELS = {"empty": 51, "read_g": 71, "read_ixy_P1": 95, "read_ixy_2P": 119,
@@ -543,6 +594,7 @@ def phase_probes(dev):
         # Where the library call gives the output itself, it must agree.
         same = {"z_only": lambda: ref[:, 0, :case.WX * PLANE_C],
                 "read_g": lambda: ref[:, 0, :PLANE_C],
+                "read_ixy_P1": lambda: ref[:, 0, 0],
                 "read_ixy_2P": lambda: ref[:, 0, 0]}.get(case.variant)
         if same is not None and not rel_err(library(), same())[1] < WINDOW_PROBE_TOL:
             raise AssertionError(f"{case.name}: the library call computes another function")
@@ -1090,6 +1142,9 @@ def phase_driving(gen_path, enc_path, splat3_backward):
     nusc = driving_fixtures.build_nusc_tree(os.path.join(root, "nusc"), *NUSC_SIZE,
                                             lidar_points=NUSC_LIDAR_POINTS,
                                             label_schema="labels")
+    # Its first frame is the committed JPEG of that frame, as real
+    # CAM_FRONT frames are JPEG: the evaluation and the demo read it.
+    nusc = driving_fixtures.use_jpeg_frame(os.path.join(root, "nusc"), nusc)
     kitti = driving_fixtures.build_kitti_tree(os.path.join(root, "kitti"), width=KITTI_SIZE[0],
                                               height=KITTI_SIZE[1],
                                               lidar_points=KITTI_LIDAR_POINTS)
@@ -1101,7 +1156,7 @@ def phase_driving(gen_path, enc_path, splat3_backward):
     # The PNG reader on a frame of the nuScenes camera's size (host time):
     # filter 0 (this package's writer) and Paeth/Average rows (the
     # anti-diagonal decode).
-    frame = os.path.join(root, "nusc", "samples", "CAM_FRONT", nusc["frames"][0])
+    frame = os.path.join(root, "nusc", "samples", "CAM_FRONT", nusc["frames"][1])
     img = read_png(frame)
     filtered = os.path.join(root, "filtered.png")
     driving_fixtures.write_filtered_png(filtered, img, np.arange(img.shape[0]) % 5)
@@ -1236,6 +1291,44 @@ def phase_driving(gen_path, enc_path, splat3_backward):
     results["k1_max_abs_err"] = max(a for a, _ in k1_errs)
     results["k1_max_rel_err"] = max(r for _, r in k1_errs)
     return results
+
+
+def phase_kitti_true_pose(gen_path, enc_path, splat3_backward):
+    """Phase 7's KITTI tree again, from the true pose (`--init_pose_type
+    gt`, as the CPU parity test runs it) and on phase 8's checkpoint, an
+    SDF-pretrained generator whose density is near a sphere: its random
+    view's render covers the reprojected LiDAR points, so every
+    depth_error_random row compares real depths (phase 7's random
+    generator covers none of them, from its PnP pose or the true one).
+    Returns the launches and the rows."""
+    import torch
+
+    from nerf_from_image_tpu_torch import eval_driving
+
+    root = os.path.join(REPO, "build", "driving_drive")
+    splat3_backward.launches = 0  # this path starts here
+    stats = eval_driving.main([
+        "--dataset", "kitti", "--kitti_data_dir", os.path.join(root, "kitti"),
+        "--max_num_samples", "2", "--resolution", str(RES), "--plane_splat", "true",
+        "--query_chunk", "0", "--resume_from", gen_path, "--coord_resume_from", enc_path,
+        "--root_path", os.path.join(root, "kitti_gt"), "--init_pose_type", "gt",
+        "--inv_steps", str(KITTI_GT_STEPS)])
+    torch.cuda.synchronize()
+    launches = splat3_backward.launches
+    n = stats["objects"]
+    with np.load(os.path.join(stats["report_dir"], "report.npz")) as data:
+        rows = {k: data[k] for k in data.files if k.endswith("depth_error_random")}
+    if (launches != 2 * KITTI_GT_STEPS * n or n == 0 or len(rows) != 2
+            or not all(v.shape == (n,) and np.isfinite(v).all() and (v > 0).all()
+                       for v in rows.values())):
+        raise AssertionError(f"KITTI from the true pose: {launches} launches, "
+                             f"depth_error_random {rows}")
+    log(f"eval_driving_kitti_gt ({n} objects from the true pose, {KITTI_GT_STEPS} steps, "
+        f"phase 8's checkpoint): depth_error_random " + ", ".join(
+            f"{k.split('/')[0]} {np.round(v, 4).tolist()}" for k, v in sorted(rows.items()))
+        + f" m, none 0; splat launches {launches}")
+    return {"launches": {"eval_driving_kitti_gt": launches},
+            "rows": {k: v.tolist() for k, v in rows.items()}}
 
 
 def _timed(module, name, record):
@@ -1404,6 +1497,7 @@ def phase_train(dev, splat3_backward):
     del model
     torch.cuda.empty_cache()
     results["launches"] = launches
+    results["checkpoint"] = checkpoint
     results["k1_max_abs_err"] = max(a for a, _ in k1_errs)
     results["k1_max_rel_err"] = max(r for _, r in k1_errs)
     return results
@@ -1663,6 +1757,419 @@ def phase_fid(dev, gen_path, splat3_backward):
     return {"launches": launches, "timing": results}
 
 
+# --- phase 11: more than one device ---------------------------------------
+
+def _relmax(a, b):
+    """max |a - b| over the largest |b| (arrays or nested lists/dicts of them)."""
+    if isinstance(b, dict):
+        return max((_relmax(a[k], b[k]) for k in b), default=0.0)
+    if isinstance(b, (list, tuple)):
+        return max((_relmax(x, y) for x, y in zip(a, b)), default=0.0)
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes {a.shape} and {b.shape}")
+    if not (np.isfinite(a).all() and np.isfinite(b).all()):
+        raise AssertionError("non-finite values")
+    return float(np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-30)) if b.size else 0.0
+
+
+def _w1_runs(root, gen_path, splat3_backward):
+    """train.main, 2 iterations after 2 SDF pretraining steps at B=8, and
+    invert.main, 2 'vgg' steps on 16 images: their losses, report rows and
+    splat launches (each path's count set to 0 just before, read just
+    after)."""
+    import torch
+
+    from nerf_from_image_tpu_torch import invert, train
+    from nerf_from_image_tpu_torch.engine import gan
+
+    os.environ.pop("NFI_INCEPTION_WEIGHTS", None)
+    steps, restore = _timed_steps(gan)
+    splat3_backward.launches = 0  # this path starts here
+    try:
+        train.main(["--dataset", "synthetic", "--resolution", str(RES), "--batch_size",
+                    str(TRAIN_BATCH), "--path_length_regularization", "--plane_splat", "true",
+                    "--max_images", str(TRAIN_IMAGES), "--sdf_pretrain_steps",
+                    str(PAR_W1_ITERATIONS), "--iterations", str(PAR_W1_ITERATIONS),
+                    "--root_path", os.path.join(root, "train")])
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    out = {"launches": {"train": splat3_backward.launches},
+           "losses": [{"sdf_pretrain_loss": float(x)} for _, x in steps["pretrain"]]
+           + [{k: float(v) for k, v in m.items()} for kind in ("g", "d") for _, m in steps[kind]]}
+    splat3_backward.launches = 0  # this path starts here
+    stats = invert.main(["--dataset", "synthetic", "--resolution", str(RES), "--batch_size", "32",
+                         "--max_images", str(DRIVE_IMAGES), "--plane_splat", "true",
+                         "--query_chunk", "0", "--inv_steps", str(PAR_W1_ITERATIONS),
+                         "--resume_from", gen_path, "--root_path", os.path.join(root, "inv")])
+    torch.cuda.synchronize()
+    out["launches"]["invert"] = splat3_backward.launches
+    with np.load(os.path.join(stats["report_dir"], "report.npz")) as data:
+        out["report"] = {k: data[k] for k in data.files if k.startswith("step")}
+    return out
+
+
+def _sync_timed(module, name, record):
+    """Wraps module.<name>: each call's host time between synchronizes is
+    added to record[0] (ms)."""
+    import torch
+
+    original = getattr(module, name)
+
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = original(*args, **kwargs)
+        torch.cuda.synchronize()
+        record[0] += (time.perf_counter() - t) * 1e3
+        return out
+
+    setattr(module, name, call)
+    return lambda: setattr(module, name, original)
+
+
+def _gloo_cases(dev, splat3_backward):
+    """A G and a D step of the bench generator and the 128^2 discriminator
+    at a global batch of PAR_BATCH, one distillation step of the full
+    MiT-B5 at the same batch, and the ray-sharded bench render (f32) with
+    its (ws, pose) gradients averaged over ranks; then a second G and D
+    step, timed, with the all-reduces' share. On one rank the same calls
+    give the reference. Returns the compared values, the K1 calls' errors
+    against the plain version, the launches, the times and the peak."""
+    import dataclasses
+
+    import torch
+
+    from nerf_from_image_tpu_torch.bench import bench_config
+    from nerf_from_image_tpu_torch.data.loaders import load_dataset
+    from nerf_from_image_tpu_torch.engine import coord_regressor as cr
+    from nerf_from_image_tpu_torch.engine import gan
+    from nerf_from_image_tpu_torch.engine.render import RenderConfig
+    from nerf_from_image_tpu_torch.models.discriminator import Discriminator
+    from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
+    from nerf_from_image_tpu_torch.models.generator import Generator
+    from nerf_from_image_tpu_torch.parallel import mesh
+    from nerf_from_image_tpu_torch.profile_step import recorded_splat_calls, render_step
+    from nerf_from_image_tpu_torch.train import seeded_generator
+
+    config_ds, split, _, _ = load_dataset("synthetic", "unused", resolution=RES,
+                                          max_images=TRAIN_IMAGES)
+
+    def batch(first, images=False):
+        sel = split.select(np.arange(first, first + PAR_BATCH))
+        host = {"pose": sel.tform_cam2world, "focal": sel.focal_length, "center": sel.center}
+        if images:
+            host["images"] = sel.images[..., :3]
+        return {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=dev)
+                for k, v in mesh.shard_batch(host, PAR_BATCH).items() if v is not None}
+
+    recorded = []
+    step = gan.Optimizer.step
+
+    def record(self, grads):
+        recorded.append([g.detach().cpu().numpy() for g in grads])
+        return step(self, grads)
+
+    gan.Optimizer.step = record
+    comm = [0.0]
+    restores = [_sync_timed(mesh, "all_reduce_mean", comm),
+                _sync_timed(mesh, "all_gather_rows", comm)]
+    out, k1, launches, times = {}, [], {}, {}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        model = Generator(latent_dim=512, scene_range=config_ds.scene_range,
+                          attention_values=10, use_sdf=True, device=dev,
+                          generator=torch.Generator().manual_seed(1234))
+        disc = Discriminator(resolution=RES, nc=3, camera_flipped=config_ds.camera_flipped,
+                             conditional_pose=True, device=dev,
+                             generator=torch.Generator().manual_seed(1235))
+        config = gan.GANTrainConfig(batch_size=PAR_BATCH, latent_dim=512,
+                                    path_length_regularization=True,
+                                    white_background=config_ds.white_background,
+                                    camera_flipped=config_ds.camera_flipped)
+        rc = RenderConfig(resolution=RES, scene_range=config_ds.scene_range,
+                          white_background=config_ds.white_background, plane_splat=True)
+        state = gan.init_gan_state(config, model, disc)
+        splat3_backward.launches = 0  # the G and D steps' path starts here
+        with recorded_splat_calls(limit=2) as calls:
+            g = gan.g_step(config, rc, state, batch(0), seeded_generator(dev, 1234, 0))
+        d = gan.d_step(config, rc, state, batch(0, True), batch(PAR_BATCH),
+                       seeded_generator(dev, 1234, 1))
+        torch.cuda.synchronize()
+        out["g_step"] = {"metrics": {k: float(v) for k, v in g.items()}, "grads": recorded[0]}
+        out["d_step"] = {"metrics": {k: float(v) for k, v in d.items()}, "grads": recorded[1]}
+        for kind, fn, args in (
+                ("g", gan.g_step, (batch(2 * PAR_BATCH), seeded_generator(dev, 1234, 2))),
+                ("d", gan.d_step, (batch(2 * PAR_BATCH, True), batch(3 * PAR_BATCH),
+                                   seeded_generator(dev, 1234, 3)))):
+            comm[0] = 0.0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(config, rc, state, *args)
+            torch.cuda.synchronize()
+            times[kind] = {"ms": (time.perf_counter() - t) * 1e3, "comm_ms": comm[0]}
+        launches["steps"] = splat3_backward.launches
+        # The first G step's first two calls against the plain version (these
+        # launches count on no path).
+        k1 += [k1_case(f"G step call {i} (rank {mesh.rank()} of {mesh.world_size()})", *c)[:2]
+               for i, c in enumerate(calls)]
+        del calls, state, disc
+        recorded.clear()
+
+        # Distillation, the generator frozen.
+        model = Generator(latent_dim=512, scene_range=config_ds.scene_range,
+                          attention_values=10, use_sdf=True, device=dev,
+                          generator=torch.Generator().manual_seed(0)).requires_grad_(False)
+        encoder = BootstrapEncoder(latent_dim=model.w_dim, device=dev,
+                                   generator=torch.Generator().manual_seed(1))
+        ccfg = cr.CoordRegressorConfig(latent_dim=512)
+        splat3_backward.launches = 0  # the distillation path starts here
+        comm[0] = 0.0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses = cr.coord_train_step(ccfg, rc, model, encoder, cr.make_optimizer(ccfg, encoder),
+                                     batch(0), torch.Generator(device=dev).manual_seed(2),
+                                     device=dev)
+        torch.cuda.synchronize()
+        times["distill"] = {"ms": (time.perf_counter() - t) * 1e3, "comm_ms": comm[0]}
+        launches["distill"] = splat3_backward.launches
+        out["distill"] = {"losses": {k: float(v) for k, v in losses.items()},
+                          "grads": recorded[0]}
+        del encoder, model
+        torch.cuda.empty_cache()
+
+        # The ray-sharded bench render: each rank its 64 of the 128 rows.
+        model = Generator(latent_dim=512, scene_range=1.4, attention_values=10, use_sdf=True,
+                          device=dev, generator=torch.Generator().manual_seed(0))
+        model.requires_grad_(False)
+        render = render_step(model, dataclasses.replace(bench_config("float32"),
+                                                        shard_rays=True), dev)
+        splat3_backward.launches = 0  # the ray-sharded path starts here
+        with recorded_splat_calls(limit=2) as calls:
+            loss, gw, gp = render()
+            gw, gp = mesh.all_reduce_mean([gw, gp])
+        torch.cuda.synchronize()
+        launches["ray_render"] = splat3_backward.launches
+        out["ray_render"] = {"loss": float(loss), "grad_ws": gw.cpu().numpy(),
+                             "grad_pose": gp.cpu().numpy()}
+        k1 += [k1_case(f"ray-sharded render call {i} (rank {mesh.rank()} of "
+                       f"{mesh.world_size()})", *c)[:2] for i, c in enumerate(calls)]
+        del calls, model
+    finally:
+        gan.Optimizer.step = step
+        for undo in restores:
+            undo()
+    return {"values": out, "k1": k1, "launches": launches, "times": times,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def parallel_worker(task, out_dir) -> int:
+    """One rank of phase 11, started by phase_parallel with a launcher's
+    environment: joins the group (nccl for one rank with its card, gloo
+    for ranks sharing the card), runs `task` and saves its results."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from nerf_from_image_tpu_torch.kernels import build
+    from nerf_from_image_tpu_torch.kernels.splat import splat3_backward
+    from nerf_from_image_tpu_torch.parallel import mesh
+    from nerf_from_image_tpu_torch.utils.device import set_strict_f32
+
+    set_strict_f32()
+    build.build_all()  # the libraries the parent built
+    dev = mesh.maybe_init_multihost(None, "cuda")
+    backend = torch.distributed.get_backend()
+    if task == "w1":
+        res = _w1_runs(os.path.join(out_dir, "run"), os.path.join(
+            REPO, "build", "invert_drive", "g_synthetic.pth"), splat3_backward)
+    else:
+        res = _gloo_cases(dev, splat3_backward)
+    res["backend"] = backend
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    torch.save(res, os.path.join(out_dir, f"rank{int(os.environ['RANK'])}.pt"))
+    return 0
+
+
+def _launch_ranks(task, world, out_dir):
+    """Runs parallel_worker(task) in `world` processes on this card with a
+    launcher's environment; returns their results in rank order."""
+    import shutil
+    import socket
+
+    import torch
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                       "--parallel-worker", task, out_dir], env=env))
+    deadline = time.time() + PAR_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise AssertionError(f"phase 11 {task}: ranks exited with {codes}")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def phase_parallel(dev, gen_path, splat3_backward):
+    """More than one device on the one card (see the module docstring).
+    Returns the launches by path (every rank's, each counted in its own
+    process from 0), the K1 errors of every rank and the timings."""
+    import torch
+
+    root = os.path.join(REPO, "build", "parallel")
+    launches, k1 = {}, []
+
+    # 1. World size 1 over nccl against the same runs in this process, run
+    # twice: K1's atomics make the card's runs differ, and the optimizer
+    # steps (Adam's first step is near sign(g)) carry that on.
+    one = _w1_runs(os.path.join(root, "one"), gen_path, splat3_backward)
+    again = _w1_runs(os.path.join(root, "again"), gen_path, splat3_backward)
+    torch.cuda.empty_cache()  # the subprocesses share the card
+    (w1,) = _launch_ranks("w1", 1, os.path.join(root, "w1"))
+    if w1["backend"] != "nccl":
+        raise AssertionError(f"world size 1 joined over {w1['backend']}")
+
+    def by_entry(run):
+        entries = {f"loss {i} {k}": v for i, m in enumerate(run["losses"]) for k, v in m.items()}
+        entries.update(run["report"])
+        return entries
+
+    for name, run in (("world size 1", w1), ("one process again", again)):
+        log(f"{name} vs one process: " + ", ".join(
+            f"{k} {_relmax(v, by_entry(one)[k]):.2e}" for k, v in by_entry(run).items()))
+    # Before the first optimizer step (the first SDF pretraining loss, the
+    # report's step-0 rows) the runs are forward passes; after it they
+    # carry the card's run-to-run spread.
+    first = {"losses": w1["losses"][:1],
+             "report": {k: v for k, v in w1["report"].items() if k.startswith("step0/")}}
+    errs = {"first": _relmax(first, {"losses": one["losses"][:1], "report": {
+                k: one["report"][k] for k in first["report"]}}),
+            "all": _relmax({"losses": w1["losses"], "report": w1["report"]},
+                           {"losses": one["losses"], "report": one["report"]}),
+            "spread": _relmax({"losses": again["losses"], "report": again["report"]},
+                              {"losses": one["losses"], "report": one["report"]})}
+    for path in ("train", "invert"):
+        if w1["launches"][path] != one["launches"][path]:
+            raise AssertionError(f"nccl world 1 {path}: {w1['launches'][path]} launches, "
+                                 f"{one['launches'][path]} in one process")
+        launches[f"parallel_w1_{path}"] = w1["launches"][path]
+    log(f"world size 1 over nccl (train {PAR_W1_ITERATIONS} iterations after "
+        f"{PAR_W1_ITERATIONS} SDF steps at B={TRAIN_BATCH}; invert {PAR_W1_ITERATIONS} vgg "
+        f"steps on {DRIVE_IMAGES} images) vs this process, of the largest value: before the "
+        f"first optimizer step {errs['first']:.3e}, all {errs['all']:.3e} (two runs in this "
+        f"process: {errs['spread']:.3e}); splat launches {w1['launches']}")
+    if errs["first"] > RENDER_REL_TOL or errs["all"] > PAR_W1_TOL:
+        raise AssertionError(f"nccl world 1 differs from one process: {errs}")
+    torch.cuda.empty_cache()
+
+    # 2. Two ranks sharing the card over gloo against one process.
+    ref = _gloo_cases(dev, splat3_backward)
+    k1 += ref["k1"]
+    torch.cuda.empty_cache()
+    ranks = _launch_ranks("gloo", 2, os.path.join(root, "gloo"))
+    timing = {"one_process": {"times": ref["times"], "peak_gib": ref["peak_gib"]}}
+    for r, res in enumerate(ranks):
+        if res["backend"] != "gloo":
+            raise AssertionError(f"rank {r} joined over {res['backend']}")
+        errs = {case: {k: _relmax(res["values"][case][k], v) for k, v in want.items()}
+                for case, want in ref["values"].items()}
+        # The path-length loss apart: a variance of per-image gradient norms.
+        for case in ("g_step",):
+            metrics, want = res["values"][case]["metrics"], ref["values"][case]["metrics"]
+            errs[case]["metrics"] = _relmax({k: v for k, v in metrics.items() if k != "loss_ppl"},
+                                            {k: v for k, v in want.items() if k != "loss_ppl"})
+            errs[case]["loss_ppl"] = _relmax(metrics["loss_ppl"], want["loss_ppl"])
+        k1 += res["k1"]
+        # Two G steps (chunks of 131072 points an image: as many launches at
+        # 4 images a rank as at 8), no D step or distillation launch, and one
+        # coarse and one fine call of each rank's 64 rows.
+        want = {"steps": 2 * K1_PER_RENDER, "distill": 0, "ray_render": 2}
+        for path, n in res["launches"].items():
+            launches[f"parallel_gloo_{path}_rank{r}"] = n
+            if n != want[path] or ref["launches"][path] != want[path]:
+                raise AssertionError(f"rank {r} {path}: {n} splat launches "
+                                     f"(one process {ref['launches'][path]})")
+        timing[f"rank{r}"] = {"times": res["times"], "peak_gib": res["peak_gib"]}
+        t = res["times"]
+        log(f"gloo rank {r}/2 on one card: G step {t['g']['ms']:.1f} ms (all-reduce and "
+            f"gathers {t['g']['comm_ms']:.1f} ms, {100 * t['g']['comm_ms'] / t['g']['ms']:.1f}%),"
+            f" D step {t['d']['ms']:.1f} ms ({t['d']['comm_ms']:.1f} ms, "
+            f"{100 * t['d']['comm_ms'] / t['d']['ms']:.1f}%), distillation step "
+            f"{t['distill']['ms']:.1f} ms ({t['distill']['comm_ms']:.1f} ms); peak memory "
+            f"{res['peak_gib']:.2f} GiB; splat launches {res['launches']}")
+        log(f"  vs one process (B={PAR_BATCH}): " + "; ".join(
+            f"{case} " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+            for case, e in errs.items()))
+        for case, e in errs.items():
+            for k, v in e.items():
+                tol = (PAR_GRAD_TOL if k.startswith("grad") else
+                       PAR_W1_TOL if k == "loss_ppl" else PAR_VALUE_TOL)
+                if v > tol:
+                    raise AssertionError(f"rank {r} {case} {k}: {v} (tolerance {tol})")
+    t = ref["times"]
+    log(f"one process (B={PAR_BATCH}): G step {t['g']['ms']:.1f} ms, D step "
+        f"{t['d']['ms']:.1f} ms, distillation step {t['distill']['ms']:.1f} ms; peak memory "
+        f"{ref['peak_gib']:.2f} GiB; splat launches {ref['launches']}")
+    return {"launches": launches, "timing": timing,
+            "k1_max_abs_err": max(a for a, _ in k1), "k1_max_rel_err": max(r for _, r in k1)}
+
+
+# --- phase 12: JPEG --------------------------------------------------------
+
+def phase_jpeg():
+    """The committed JPEG fixtures decoded on this host against imageio's
+    pixels (equal bits), and the 1600x900 frame's decode time."""
+    import json as json_
+
+    from nerf_from_image_tpu_torch.data.jpeg import FIXTURE_DIR
+    from nerf_from_image_tpu_torch.data.jpeg.make_fixtures import (
+        CAM_FRONT_FRAME,
+        SMALL,
+        pixel_digest,
+    )
+    from nerf_from_image_tpu_torch.utils.images import read_image
+
+    for name, _, _ in SMALL:
+        got = read_image(os.path.join(FIXTURE_DIR, name + ".jpg"))
+        want = np.load(os.path.join(FIXTURE_DIR, name + ".npy"))
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"JPEG fixture {name} decoded wrongly")
+    path = os.path.join(FIXTURE_DIR, CAM_FRONT_FRAME)
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        frame = read_image(path)
+        times.append((time.perf_counter() - t) * 1e3)
+    with open(os.path.join(FIXTURE_DIR, "CAM_FRONT_FRAME.json")) as f:
+        if pixel_digest(frame) != json_.load(f):
+            raise AssertionError("the 1600x900 JPEG frame decoded wrongly")
+    ms = float(np.median(times))
+    log(f"JPEG: {len(SMALL)} fixtures equal imageio's pixels bit for bit; the "
+        f"{frame.shape[1]}x{frame.shape[0]} 4:2:0 frame ({os.path.getsize(path)} bytes) "
+        f"decodes in {ms:.1f} ms on this host (median of 3: "
+        f"{', '.join(f'{t:.1f}' for t in times)})")
+    return {"frame_ms": ms, "frame_bytes": os.path.getsize(path)}
+
+
 def main() -> int:
     import torch
 
@@ -1733,11 +2240,21 @@ def main() -> int:
     paths.update(training.pop("launches"))
     summary["max_abs_err"] = max(summary["max_abs_err"], training.pop("k1_max_abs_err"))
     summary["max_rel_err"] = max(summary["max_rel_err"], training.pop("k1_max_rel_err"))
+    kitti_gt = phase_kitti_true_pose(training.pop("checkpoint"),
+                                     os.path.join(drive_root, "c_synthetic.pth"), splat3_backward)
+    paths.update(kitti_gt["launches"])
+    driving["eval_driving_kitti_gt"] = kitti_gt["rows"]
     encoder_training = phase_train_encoder(
         os.path.join(drive_root, "g_synthetic.pth"), splat3_backward)
     paths.update(encoder_training.pop("launches"))
     fid_eval = phase_fid(dev, os.path.join(drive_root, "g_synthetic.pth"), splat3_backward)
     paths.update(fid_eval.pop("launches"))
+    torch.cuda.empty_cache()
+    parallel = phase_parallel(dev, os.path.join(drive_root, "g_synthetic.pth"), splat3_backward)
+    paths.update(parallel.pop("launches"))
+    summary["max_abs_err"] = max(summary["max_abs_err"], parallel.pop("k1_max_abs_err"))
+    summary["max_rel_err"] = max(summary["max_rel_err"], parallel.pop("k1_max_rel_err"))
+    jpeg = phase_jpeg()
     summary["launches"] = sum(paths.values())
     summary["launches_by_path"] = paths
     summary["hybrid_inversion"] = hybrid
@@ -1746,6 +2263,8 @@ def main() -> int:
     summary["train"] = training
     summary["train_encoder"] = encoder_training["timing"]
     summary["fid_eval"] = fid_eval["timing"]
+    summary["parallel"] = parallel["timing"]
+    summary["jpeg"] = jpeg
     torch.cuda.empty_cache()
 
     probes = phase_probes(dev)
@@ -1759,4 +2278,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.exit(parallel_worker(*sys.argv[2:]))
     sys.exit(main())

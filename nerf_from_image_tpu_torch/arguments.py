@@ -5,7 +5,7 @@ user of the reference can drive this framework with the same commands. This
 package's copy of the JAX package's arguments.py: the same flags, defaults
 and post-processing, so one command line drives either package, plus
 `--device` (the card by default; `--device cpu` runs the kernels' plain
-versions on the CPU).
+versions on the CPU). More than one device: parallel/mesh.py.
 """
 
 from __future__ import annotations
@@ -32,13 +32,15 @@ def parse_args(argv=None):
 
     # General settings
     parser.add_argument("--chips", type=int, default=0,
-                        help="Number of devices (0 = all); the port runs on one "
-                             "and raises for more")
+                        help="Number of devices: N > 1 without a launcher spawns N "
+                             "local processes, one card each; under torchrun 0 or "
+                             "the world size")
     parser.add_argument("--gpus", type=int, default=0,
                         help="Reference-CLI compatibility alias for --chips "
                              "(reference arguments.py:22-25)")
     parser.add_argument("--multihost", action="store_true",
-                        help="Multi-host data parallelism (JAX package only)")
+                        help="Multi-host data parallelism: needs torchrun's "
+                             "environment or COORDINATOR_ADDRESS with NFI_*")
     parser.add_argument("--dataset", type=str, default="autodetect",
                         help="Dataset among (shapenet_*, p3d_*, cub, "
                              "imagenet_*, carla, synthetic)")

@@ -283,6 +283,35 @@ def build_nusc_tree(root: str, width: int = NUSC_SIZE[0], height: int = NUSC_SIZ
             "annotations": valid}
 
 
+def use_jpeg_frame(root: str, tree: Dict[str, object]) -> Dict[str, object]:
+    """Replaces the first CAM_FRONT frame of a tree that build_nusc_tree
+    wrote at the camera's 1600x900 with its default seed by the committed
+    JPEG of that frame (data/jpeg/, written by PIL at quality 75, 4:2:0),
+    as real nuScenes frames are JPEG. Returns `tree` with the frame's new
+    name."""
+    import shutil
+
+    from nerf_from_image_tpu_torch.data.jpeg import FIXTURE_DIR
+    from nerf_from_image_tpu_torch.data.jpeg.make_fixtures import CAM_FRONT_FRAME
+
+    old = tree["frames"][0]
+    png = os.path.join(root, "samples/CAM_FRONT", old)
+    if images.image_shape(png) != (NUSC_SIZE[1], NUSC_SIZE[0]) or old[:-4] != CAM_FRONT_FRAME[:-4]:
+        raise ValueError(f"{png} is not the default tree's first 1600x900 frame")
+    shutil.copyfile(os.path.join(FIXTURE_DIR, CAM_FRONT_FRAME),
+                    os.path.join(root, "samples/CAM_FRONT", CAM_FRONT_FRAME))
+    os.remove(png)
+    table = os.path.join(root, tree["version"], "sample_data.json")
+    with open(table) as f:
+        rows = json.load(f)
+    for row in rows:
+        if row["filename"] == f"samples/CAM_FRONT/{old}":
+            row["filename"] = f"samples/CAM_FRONT/{CAM_FRONT_FRAME}"
+    with open(table, "w") as f:
+        json.dump(rows, f)
+    return dict(tree, frames=[CAM_FRONT_FRAME] + list(tree["frames"][1:]))
+
+
 # The two KITTI cars in the rectified camera frame: (x, y of the box's
 # bottom, z), heading ry, (h, w, l); a near one ~400 px wide at 1242x375
 # and a far one ~60 px wide.

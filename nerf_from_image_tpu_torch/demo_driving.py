@@ -16,8 +16,8 @@ data/driving_fixtures.py):
       --nusc_data_dir <tree> --inv_manual_input_path <frame>.png \\
       --resolution 32 --inv_steps 2 --device cpu
 
-Refused with an error naming ROADMAP.md section 1 item 8: orbax
-checkpoints and more than one device.
+Refused: orbax checkpoints, and more than one device (--chips/--gpus > 1,
+--multihost): the JAX package's demo runs on one device, with no mesh.
 """
 
 from __future__ import annotations
@@ -60,7 +60,6 @@ def main(argv=None) -> Dict[str, object]:
         pose_params_from_matrix,
     )
     from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
-    from nerf_from_image_tpu_torch.invert import refuse_multi_device
     from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
     from nerf_from_image_tpu_torch.models.generator import Generator
     from nerf_from_image_tpu_torch.models.lpips import make_lpips
@@ -74,7 +73,10 @@ def main(argv=None) -> Dict[str, object]:
     )
 
     args = arguments.parse_args(argv)
-    refuse_multi_device(args)
+    if args.chips > 1 or args.multihost:
+        raise NotImplementedError(
+            "the driving demo runs on one device (--chips/--gpus > 1 and --multihost are "
+            "refused): the JAX package's demo has no mesh either")
     dev = resolve_device(args.device)
     set_strict_f32()  # the reference pins f32
     # The reference demo overrides the driving eval config with the

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from nerf_from_image_tpu_torch.ops.grid_sample import grid_sample_2d_zeros_packed
+from nerf_from_image_tpu_torch.parallel import mesh
 from nerf_from_image_tpu_torch.pose.pose import invert_space
 
 
@@ -42,10 +43,10 @@ def sample_transform(
     taken whether or not scale is disabled, so the others do not depend on
     it."""
     def uniform(*shape):
-        return torch.rand(shape, generator=generator, device=device, dtype=dtype)
+        return mesh.draw(torch.rand, shape, generator=generator, device=device, dtype=dtype)
 
     def normal(*shape):
-        return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+        return mesh.draw(torch.randn, shape, generator=generator, device=device, dtype=dtype)
 
     rot = (uniform(batch_size) - 0.5) * 2.0 * math.pi
     rot = rot * (uniform(batch_size) < p).to(dtype)

@@ -27,6 +27,7 @@ import torch
 from nerf_from_image_tpu_torch.engine.gan import Optimizer, param_grads
 from nerf_from_image_tpu_torch.engine.inversion import _abs
 from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
+from nerf_from_image_tpu_torch.parallel import mesh
 from nerf_from_image_tpu_torch.utils.device import check_on_device, resolve_device
 
 
@@ -80,6 +81,7 @@ def render_targets(render_config: RenderConfig, generator_ema, batch: Dict[str, 
     return torch.clamp(out.rgb[..., :3], -1.0, 1.0), out.mask, out.semantics, w[:, :1]
 
 
+@mesh.sharded_step
 def coord_train_step(
     config: CoordRegressorConfig,
     render_config: RenderConfig,
@@ -99,17 +101,19 @@ def coord_train_step(
     of the train split (all but 'pose' optional). z [B, latent_dim] is
     drawn from `generator` when not given; `generator` also draws the
     render's samples and the encoder's drop path (None: a deterministic
-    render, and drop path from torch's default generator).
+    render, and drop path from torch's default generator). On several
+    ranks the batch is the rank's rows, the draws the global draws' rows,
+    and the gradients and losses are averaged over ranks.
     """
     dev = resolve_device(device)
     check_on_device(dev, pose=batch["pose"], z=z)
     if z is None:
-        z = torch.randn((batch["pose"].shape[0], config.latent_dim), generator=generator,
-                        device=dev)
+        z = mesh.draw(torch.randn, (batch["pose"].shape[0], config.latent_dim),
+                      generator=generator, device=dev)
     image, mask, coords, w = render_targets(render_config, generator_ema, batch, z,
                                             generator, dev)
     pred_coords, pred_mask, pred_w = encoder(image, deterministic=False, generator=generator)
     loss, losses = coord_losses(pred_coords, pred_mask, pred_w, coords, mask, w)
     opt.step(param_grads(loss, opt.params))
     losses["loss"] = loss
-    return {k: v.detach() for k, v in losses.items()}
+    return mesh.mean_metrics({k: v.detach() for k, v in losses.items()})

@@ -29,6 +29,7 @@ from nerf_from_image_tpu_torch.engine.inversion import (
 from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
 from nerf_from_image_tpu_torch.metrics import fid as fid_mod
 from nerf_from_image_tpu_torch.metrics import image as image_metrics
+from nerf_from_image_tpu_torch.parallel import mesh
 from nerf_from_image_tpu_torch.pose.pose import rotation_matrix_distance
 from nerf_from_image_tpu_torch.utils import fileio
 from nerf_from_image_tpu_torch.utils.device import check_on_device, resolve_device
@@ -162,6 +163,18 @@ class InversionReport:
                 if v is not None:
                     item.setdefault(k, []).append(_to_numpy(v))
 
+    def gathered(self) -> "InversionReport":
+        """The report of every rank's rows, in rank order, on every rank
+        (itself on one rank)."""
+        if mesh.world_size() == 1:
+            return self
+        merged = InversionReport(self.checkpoint_steps, self.metric_notes)
+        for part in mesh.gather_objects(self.consolidated()):
+            for step, item in part.items():
+                for k, v in item.items():
+                    merged.items[step].setdefault(k, []).append(v)
+        return merged
+
     def consolidated(self) -> Dict[int, Dict[str, np.ndarray]]:
         return {
             step: {
@@ -207,8 +220,15 @@ class InversionReport:
         """Writes <path_prefix>.npz (keys 'step<N>/<metric>', and
         '__metric_notes__' as JSON) and <path_prefix>.txt. The .npz is
         written to a temporary file first and moved over the old one, so
-        a crash leaves the previous report whole. Returns the summary."""
+        a crash leaves the previous report whole; on rank 0 alone, the other
+        ranks of a data-parallel run waiting for it. Returns the summary."""
         summary = self.summary(fid_stats_real)
+        if mesh.is_main():
+            self._write(path_prefix, summary)
+        mesh.barrier()
+        return summary
+
+    def _write(self, path_prefix: str, summary: str) -> None:
         fileio.mkdir(os.path.dirname(path_prefix) or ".")
         flat = {}
         for step, item in self.consolidated().items():
@@ -222,7 +242,6 @@ class InversionReport:
         fileio.replace_file(tmp, path_prefix + ".npz")
         with fileio.open_file(path_prefix + ".txt", "w") as f:
             f.write(summary + "\n")
-        return summary
 
     def num_samples(self, metric: str = "psnr") -> int:
         """Images accumulated so far at the first checkpoint (the resume

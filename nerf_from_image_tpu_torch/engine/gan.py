@@ -14,6 +14,13 @@ max_norm, then Adam (b1 = 0, b2 = 0.99, eps = 1e-8), then the learning
 rate min(target / 10 + delta * count, target) at the optimizer's own
 update count from 0.
 
+On several ranks (parallel/mesh.py) each step runs on the rank's rows of
+the global batch: its draws are the global draws' rows, its gradients
+are averaged over ranks by one flattened all-reduce before the clip (where
+the JAX step's psum sits), and the statistics that couple the batch (the
+path-length mean, ADA's sign, every metric) are all-reduced, so the world
+size changes no number.
+
 Random draws come from one torch.Generator per step; every draw can also
 be handed in through `draws` (the latents 'z', the augmentation
 transforms, the regularizers' 'bins' and 'perturb', the path-length
@@ -35,6 +42,7 @@ from nerf_from_image_tpu_torch.engine import augment as augment_mod
 from nerf_from_image_tpu_torch.engine import regularizers
 from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
 from nerf_from_image_tpu_torch.ops import filters
+from nerf_from_image_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,10 +157,11 @@ def _params(module: torch.nn.Module) -> List[torch.nn.Parameter]:
 
 def param_grads(loss: torch.Tensor, params: List[torch.nn.Parameter]) -> List[torch.Tensor]:
     """d loss / d params, zeros for a parameter the loss does not use (the
-    noise strengths without StyleGAN noise), as JAX's grad gives; writes
-    no .grad."""
+    noise strengths without StyleGAN noise), as JAX's grad gives, averaged
+    over ranks; writes no .grad."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    return mesh.all_reduce_mean(
+        [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
 
 
 @dataclasses.dataclass
@@ -280,6 +289,7 @@ def _augment_camera(config, state, generator, pose, focal, tform):
     return pose, focal
 
 
+@mesh.sharded_step
 def g_step(
     config: GANTrainConfig,
     render_config: RenderConfig,
@@ -318,8 +328,8 @@ def g_step(
                                             draws.get("tform2"))
 
     B = pose.shape[0]
-    z = _draw(draws, "z", lambda: torch.randn((B, config.latent_dim), generator=generator,
-                                                device=dev))
+    z = _draw(draws, "z", lambda: mesh.draw(torch.randn, (B, config.latent_dim),
+                                              generator=generator, device=dev))
     out, aux = render(render_config, model, pose, focal, z, center=batch.get("center"),
                       bbox=batch.get("bbox"), generator=generator, device=dev,
                       label=labels, image=cond_rgb, noise_mode=config.noise_mode)
@@ -371,7 +381,7 @@ def g_step(
         ppl = regularizers.path_length(model, aux["ws"], draws.get("ppl_noise"), generator)
         pl_weight = config.pl_weight * torch.clamp_max(
             _f32(state.iteration, dev) / config.lr_warmup_iters, 1.0)
-        ppl_mean = torch.mean(ppl)
+        ppl_mean = mesh.mean(torch.mean(ppl.detach()))  # over the global batch
         ppl_avg = torch.where(state.ppl_running_avg < 0, ppl_mean.detach(),
                               state.ppl_running_avg)
         # The running-average target is detached: no gradient flows
@@ -389,7 +399,7 @@ def g_step(
     metrics["grad_norm_g"] = global_norm(grads).detach()
     state.ppl_running_avg = ppl_avg
     state.iteration += 1
-    return metrics
+    return mesh.mean_metrics(metrics)
 
 
 def prepare_real_phase(config, state, batch, generator, tform=None):
@@ -455,6 +465,7 @@ def d_branch(config: GANTrainConfig, disc, real, fake, suffix: str = ""):
     return grads, metrics
 
 
+@mesh.sharded_step
 def d_step(
     config: GANTrainConfig,
     render_config: RenderConfig,
@@ -479,8 +490,9 @@ def d_step(
     draws = draws or {}
     dev = state.augment_p_eff.device
     metrics: Dict[str, torch.Tensor] = {}
-    z = _draw(draws, "z", lambda: torch.randn((fake_batch["pose"].shape[0], config.latent_dim),
-                                                generator=generator, device=dev))
+    z = _draw(draws, "z", lambda: mesh.draw(torch.randn,
+                                              (fake_batch["pose"].shape[0], config.latent_dim),
+                                              generator=generator, device=dev))
     cond_f = (fake_batch["images"][..., :3]
               if (config.use_encoder and "images" in fake_batch) else None)
     label_f = fake_batch.get("classes") if config.use_class else None
@@ -513,6 +525,8 @@ def d_step(
                               (real_img2, pose_r2, focal_r2, None, None),
                               (fake_img2, pose_f2, focal_f2, None, None), suffix="_uncond")
         metrics.update(m1)
+    # Global losses and ADA's sign before the p update.
+    metrics = mesh.mean_metrics(metrics)
 
     if grads is not None and grads2 is not None:
         # One clip over both discriminators' parameters, by their joint
@@ -552,6 +566,7 @@ def d_step(
     return metrics
 
 
+@mesh.sharded_step
 def sdf_pretrain_step(
     config: GANTrainConfig,
     model,
@@ -565,19 +580,21 @@ def sdf_pretrain_step(
     fitted to a sphere's distance field, with the eikonal term); updates
     the generator in place through `opt` (optax.adam: make_pretrain_optimizer)
     and returns the loss. Conditional modes pretrain with their
-    conditioning. Draws: 'z', 'bins'."""
+    conditioning. Draws: 'z', 'bins'. On several ranks each takes its
+    rows of config.batch_size."""
     draws = draws or {}
     dev = next(model.parameters()).device
-    z = _draw(draws, "z", lambda: torch.randn((config.batch_size, config.latent_dim),
-                                                generator=generator, device=dev))
+    batch = mesh.local_batch(config.batch_size)
+    z = _draw(draws, "z", lambda: mesh.draw(torch.randn, (batch, config.latent_dim),
+                                              generator=generator, device=dev))
     bins = _draw(draws, "bins", lambda: regularizers.volume_samples(
-        model, config.batch_size, generator, dev)[0])
+        model, batch, generator, dev)[0])
     ws = model.mapping(z, labels, cond_image)
     losses = regularizers.sdf_pretrain_losses(model, ws, bins)
     loss = (torch.mean(losses["sdf_distance_loss"])
             + config.eikonal * torch.mean(losses["sdf_eikonal_loss"]))
     opt.step(param_grads(loss, opt.params))
-    return loss.detach()
+    return mesh.mean(loss.detach())
 
 
 def make_pretrain_optimizer(model, lr: float) -> Optimizer:

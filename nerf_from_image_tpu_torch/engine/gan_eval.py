@@ -22,6 +22,7 @@ import torch
 from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
 from nerf_from_image_tpu_torch.metrics import fid as fid_mod
 from nerf_from_image_tpu_torch.metrics import image as image_metrics
+from nerf_from_image_tpu_torch.parallel import mesh
 from nerf_from_image_tpu_torch.utils.device import resolve_device, to_device
 
 
@@ -134,37 +135,51 @@ def evaluate_recon(
 
     Returns the metrics' means, 'fid' when `real_stats` and activations
     are there, 'n_images', and 'first_batch': the first batch's 'rgb',
-    'depth' and 'mask' as numpy arrays, for image grids.
+    'depth' and 'mask' as numpy arrays, for image grids. On several ranks
+    each batch's rows are split over them (the last batch padded with its
+    last image), and the rows are gathered in order, so every rank returns
+    the one-rank result.
     """
     dev = resolve_device(device)
     n = len(eval_indices)
     pose_indices = perm_indices if recon_mode == "random" else eval_indices
     score = recon_mode == "front" or (
         recon_mode == "random" and views_per_object is not None and views_per_object > 1)
+    world = mesh.world_size()
 
     acts = []
     sums: Dict[str, float] = {}
     count = 0
     first_batch = None
     for i in range(0, n, batch_size):
-        idx = pose_indices[i : i + batch_size]
-        sel = split.select(idx)
+        rows = np.arange(i, min(i + batch_size, n))
+        n_real = len(rows)
+        if world > 1:
+            rows = np.concatenate((rows, np.repeat(rows[-1:], (-n_real) % world)))
+            rows = rows[mesh.row_block(len(rows))]
+        sel = split.select(pose_indices[rows])
         target = to_device(sel.images, dev) if score and sel.images is not None else None
         image_in = None
         if input_images is not None:
-            image_in = to_device(input_images[eval_indices[i : i + batch_size]][..., :3], dev)
+            image_in = to_device(input_images[eval_indices[rows]][..., :3], dev)
         label = (to_device(sel.classes, dev, torch.long)
                  if use_labels and sel.classes is not None else None)
-        res = eval_batch_fn(to_device(z_fid[i : i + batch_size], dev),
+        res = eval_batch_fn(to_device(z_fid[rows], dev),
                             to_device(sel.tform_cam2world, dev), to_device(sel.focal_length, dev),
                             to_device(sel.center, dev), to_device(sel.bbox, dev), image_in, target,
                             label)
+        if world > 1:
+            keep = ("activations", "psnr", "ssim", "lpips", "iou") + (
+                ("rgb", "depth", "mask") if first_batch is None else ())
+            res = mesh.gather_rows({k: v.detach().cpu().numpy() for k, v in res.items()
+                                    if k in keep})
+            res = {k: torch.as_tensor(v[:n_real], device=dev) for k, v in res.items()}
         if "activations" in res:
             acts.append(res.pop("activations"))
         for k in ("psnr", "ssim", "lpips", "iou"):
             if k in res:
                 sums[k] = sums.get(k, 0.0) + float(torch.sum(res[k]))
-        count += len(idx)
+        count += n_real
         if first_batch is None:
             first_batch = {k: res[k].cpu().numpy() for k in ("rgb", "depth", "mask")
                            if k in res}

@@ -21,6 +21,7 @@ import torch
 
 from nerf_from_image_tpu_torch.models.generator import laplace_cdf, laplace_pdf
 from nerf_from_image_tpu_torch.ops.sampling import sample_volume_stratified
+from nerf_from_image_tpu_torch.parallel import mesh
 
 NSTRATA = 32
 
@@ -36,12 +37,12 @@ def path_length_noise(model, planes_shape, generator: Optional[torch.Generator],
                       device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The random output directions of path_length: planes noise scaled by
     1/sqrt(H * W), and the palette's when the generator has one."""
-    noise_p = torch.randn(planes_shape, generator=generator, device=device)
+    noise_p = mesh.draw(torch.randn, planes_shape, generator=generator, device=device)
     noise_p = noise_p / math.sqrt(planes_shape[2] * planes_shape[3])
     noise_a = None
     if model.attention_values > 0:
-        noise_a = torch.randn((planes_shape[0], model.attention_values, 3),
-                              generator=generator, device=device)
+        noise_a = mesh.draw(torch.randn, (planes_shape[0], model.attention_values, 3),
+                            generator=generator, device=device)
     return noise_p, noise_a
 
 
@@ -71,7 +72,7 @@ def volume_samples(model, batch_size: int, generator: Optional[torch.Generator],
     TV perturbation noise [B, N, 3])."""
     bins = sample_volume_stratified(generator, batch_size, nstrata, model.scene_range,
                                     device=device)
-    return bins, torch.randn(bins.shape, generator=generator, device=device)
+    return bins, mesh.draw(torch.randn, bins.shape, generator=generator, device=device)
 
 
 def volume_regularizers(

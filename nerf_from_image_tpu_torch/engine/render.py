@@ -18,10 +18,15 @@ ray-coherent blocks on chip; any other query (a padded chunk) hands it
 none. The kernel is exact for any point geometry, so unlike the JAX
 package no query falls back to another sampler, and the TPU kernel's
 window and residual settings have no counterpart.
+
+With `shard_rays` on several ranks (parallel/mesh.py) each rank renders
+its contiguous block of the image's rows with the full, replicated
+planes, and the maps are assembled by an autograd-aware all-gather.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
@@ -30,15 +35,15 @@ from torch.utils.checkpoint import checkpoint
 
 from nerf_from_image_tpu_torch.ops import aabb, compositing, rays, sampling
 from nerf_from_image_tpu_torch.ops.triplane import pack_corners
+from nerf_from_image_tpu_torch.parallel import mesh
 from nerf_from_image_tpu_torch.pose.pose import invert_space
 from nerf_from_image_tpu_torch.utils.device import check_on_device, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Rendering configuration: the JAX package's fields but its ray
-    sharding (more than one device) and its TPU splat settings
-    (`pack_planes`, `splat_window`, `splat_save_rows`)."""
+    """Rendering configuration: the JAX package's fields but its TPU splat
+    settings (`pack_planes`, `splat_window`, `splat_save_rows`)."""
 
     resolution: int = 128
     depth_samples_per_ray: int = 64
@@ -70,6 +75,13 @@ class RenderConfig:
     splat_block: Tuple[int, int, int] = (16, 16, 4)
     # 'pairwise': sort-free dual-list compositing; 'sort': argsort merge.
     merge_mode: str = "pairwise"
+    # Split the image's H rows over the ranks: each renders its block (its
+    # draws the global draws' rows) and every rank gets the whole maps
+    # from an autograd-aware all-gather. Every rank then takes the same
+    # loss, and each replicated leaf's gradient is W times its rows'
+    # share: their mean over ranks (mesh.all_reduce_mean) is the whole
+    # render's gradient. H must be divisible by the world size.
+    shard_rays: bool = False
 
 
 def prepare_rays(
@@ -82,12 +94,16 @@ def prepare_rays(
     width: Optional[int] = None,
 ):
     """Ray bundle [B, H, W, 3] x 2 (normalized directions) + near/far [B, H, W];
-    H and W are `height` and `width`, config.resolution where None."""
+    H and W are `height` and `width`, config.resolution where None; with
+    `shard_rays` the rank's block of the H rows."""
+    h = height or config.resolution
     ray_origins, ray_directions = rays.get_ray_bundle(
-        height or config.resolution, width or config.resolution, focal_length,
-        tform_cam2world, bbox, center,
+        h, width or config.resolution, focal_length, tform_cam2world, bbox, center,
     )
     ray_directions = rays.normalize_directions(ray_directions)
+    if config.shard_rays:
+        rows = mesh.row_block(h)
+        ray_origins, ray_directions = ray_origins[:, rows], ray_directions[:, rows]
     near, far = aabb.compute_near_far_planes(
         ray_origins, ray_directions, config.scene_range
     )
@@ -190,12 +206,14 @@ def render_field(
         )
         flat_w = compositing.smooth_weights(weights.reshape(-1, S))
         z_mid = 0.5 * (depth_values[..., 1:] + depth_values[..., :-1])
+        # Per ray [B, H, W, ...], so that a ray-sharded render's draws
+        # split along H.
         z_samples = sampling.sample_pdf(
-            z_mid.reshape(-1, S - 1).detach(),
-            flat_w[..., 1:-1],
+            z_mid.detach(),
+            flat_w[..., 1:-1].reshape(B, H, W, S - 2),
             S,
             generator=generator,
-        ).reshape(B, H, W, S)
+        )
         if sort_fine and generator is not None:
             # Random quantiles are unordered; the dual-list compositor needs
             # each list sorted. Deterministic quantiles already increase.
@@ -335,17 +353,22 @@ def render(
         model, field_planes, attention_values, splat=config.plane_splat,
         table_dtype=config.plane_dtype,
     )
-    out, aux = render_field(
-        config, field_fn, ray_origins, ray_directions, near, far,
-        generator=generator, force_no_cam_grad=force_no_cam_grad,
-        viewdir_embedding=viewdir_embedding,
-    )
+    with mesh.sharded_draws(1) if config.shard_rays else contextlib.nullcontext():
+        out, aux = render_field(
+            config, field_fn, ray_origins, ray_directions, near, far,
+            generator=generator, force_no_cam_grad=force_no_cam_grad,
+            viewdir_embedding=viewdir_embedding,
+        )
     if config.zbuffer_depth:
         w2c = invert_space(tform_cam2world)
         view_dirs = torch.sum(
             ray_directions[..., None, :] * w2c[:, None, None, :3, :3], dim=-1
         )
         out = out._replace(depth=-(view_dirs[..., -1] * out.depth))
+    if config.shard_rays:
+        # aux['depth_values'] stays the rank's rows.
+        out = out._replace(**{k: mesh.all_gather_rows(v, dim=1)
+                              for k, v in out._asdict().items() if v is not None})
     aux["ws"] = ws
     aux["planes"] = planes
     if attention_values is not None:

@@ -20,9 +20,15 @@ data/driving_fixtures.py):
       --nusc_data_dir <tree> --driving_index_file <tree>/v1.0-mini/index.json \\
       --resolution 32 --inv_steps 2 --device cpu
 
-Refused with an error naming ROADMAP.md section 1 item 8: orbax
-checkpoints (a --resume_from or --coord_resume_from that is not a .pth
-file) and more than one device (--chips, --gpus, --multihost).
+More than one device (parallel/mesh.py): under torchrun or with --gpus N
+the objects are split over the ranks in contiguous blocks, and the
+report's rows are gathered to rank 0 in order, so the report is the
+one-device report row for row (each rank first replays the shared
+random stream over the objects before its block). Rank 0 alone writes
+the report.
+
+Refused: orbax checkpoints (a --resume_from or --coord_resume_from that
+is not a .pth file).
 """
 
 from __future__ import annotations
@@ -185,6 +191,45 @@ def _host(out):
                            if isinstance(v, torch.Tensor)})
 
 
+def _replay_shared_draws(args, dataset, encoder, config_ds, rng, lo, hi, to_dev) -> None:
+    """Advances `rng`, the object loop's shared random stream, past the
+    objects before `lo`, as the one-rank loop draws from it: a shuffle of
+    a nuScenes instance's annotations, the KITTI/Waymo random rotation,
+    the demo's novel view, and nothing for an object skipped on an empty
+    predicted mask (each rank judges its block [lo, hi), and the verdicts
+    are gathered)."""
+    import torch
+
+    from nerf_from_image_tpu_torch.parallel import mesh
+
+    skips = []
+    if encoder is not None and args.init_pose_type not in ("gt", "external"):
+        for idx in range(lo, hi):
+            sample = dataset[idx]
+            img = to_dev(sample["img"])[None][..., :3]
+            if config_ds.white_background:
+                img = img + (to_dev(sample["mask"])[None][..., None] - 1.0) * 0.5
+            with torch.no_grad():
+                _, mask_pred, _ = encoder(img)
+            skips.append(float(torch.sum(mask_pred > 0.9)) == 0)
+    else:
+        skips = [False] * (hi - lo)
+    skipped = [s for part in mesh.gather_objects(skips) for s in part]
+    for idx in range(lo):
+        if skipped[idx]:
+            continue
+        n_views = 0
+        if args.dataset == "nusc":
+            instoken = dataset.instoken_per_ann[dataset.all_valid_samples[idx][0]]
+            n_views = len(dataset.anntokens_per_ins[instoken])
+            if n_views > 1:
+                rng.shuffle(list(range(n_views)))
+        else:
+            random_rotation(rng)
+        if args.inv_export_demo_sample and args.dataset == "nusc" and n_views <= 1:
+            random_rotation(rng)
+
+
 def main(argv=None) -> Dict[str, object]:
     """Runs the driving evaluation on the command line `argv` (sys.argv[1:]
     when None). Returns {'objects': objects inverted, 'seconds': wall time
@@ -202,14 +247,14 @@ def main(argv=None) -> Dict[str, object]:
         pose_params_from_matrix,
     )
     from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
-    from nerf_from_image_tpu_torch.invert import refuse_multi_device
     from nerf_from_image_tpu_torch.metrics import image as image_metrics
     from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
     from nerf_from_image_tpu_torch.models.generator import Generator
     from nerf_from_image_tpu_torch.models.lpips import lpips_metric_grade, make_lpips
     from nerf_from_image_tpu_torch.pose import pnp
     from nerf_from_image_tpu_torch.pose.pose import invert_space, rotation_matrix_distance
-    from nerf_from_image_tpu_torch.utils.device import resolve_device, set_strict_f32
+    from nerf_from_image_tpu_torch.parallel import mesh
+    from nerf_from_image_tpu_torch.utils.device import set_strict_f32
     from nerf_from_image_tpu_torch.utils.weights import (
         load_reference_encoder,
         load_reference_generator,
@@ -217,11 +262,13 @@ def main(argv=None) -> Dict[str, object]:
     from scipy.spatial.transform import Rotation  # noqa: F401 (random_rotation)
 
     args = arguments.parse_args(argv)
-    refuse_multi_device(args)
     if args.dataset not in ("nusc", "kitti", "waymo"):
         raise ValueError(f"the driving evaluation takes nusc, kitti or waymo, not "
                          f"{args.dataset!r}")
-    dev = resolve_device(args.device)
+    spawned, result = mesh.spawn_local(args, "nerf_from_image_tpu_torch.eval_driving", argv)
+    if spawned:
+        return result
+    dev = mesh.maybe_init_multihost(args, args.device)
     set_strict_f32()  # the reference pins f32
     config_ds = get_dataset_config(args.dataset)
     flipped = config_ds.camera_flipped
@@ -301,9 +348,15 @@ def main(argv=None) -> Dict[str, object]:
     def part(name):
         parts_ms[name].append(lap())
 
+    # The rank's contiguous block of objects.
+    world, rank = mesh.world_size(), mesh.rank()
+    lo, hi = rank * n_objects // world, (rank + 1) * n_objects // world
+    if world > 1:
+        _replay_shared_draws(args, dataset, encoder, config_ds, rng, lo, hi, to_dev)
+
     objects = 0
     t0 = time.time()
-    for idx in range(n_objects):
+    for idx in range(lo, hi):
         t_part = time.perf_counter()
         sample = dataset[idx]
         target_img = to_dev(sample["img"])[None]
@@ -495,13 +548,16 @@ def main(argv=None) -> Dict[str, object]:
                 perm_target=None if perm_img is None else perm_img.cpu().numpy())
         objects += 1
 
-        if (idx + 1) % 20 == 0 or idx + 1 == n_objects:
-            elapsed = (time.time() - t0) / (idx + 1)
+        if (idx + 1 - lo) % 20 == 0 or idx + 1 == hi:
+            elapsed = (time.time() - t0) / (idx + 1 - lo)
             print(f"[{idx + 1}/{n_objects}] {elapsed:.2f} s/obj")
-            report.save(os.path.join(report_dir, "report_checkpoint"))
+            if world == 1:  # a partial report of one rank's rows is not written
+                report.save(os.path.join(report_dir, "report_checkpoint"))
 
-    stats = {"objects": objects, "seconds": time.time() - t0, "parts_ms": parts_ms,
-             "steps": niter, "report_dir": report_dir}
+    stats = {"objects": int(sum(mesh.gather_objects(objects))),
+             "seconds": time.time() - t0, "parts_ms": parts_ms, "steps": niter,
+             "report_dir": report_dir}
+    report = report.gathered()
     report.save(os.path.join(report_dir, "report"))
     print(report.summary())
     return stats

@@ -21,9 +21,16 @@ Example (random weights, on the CPU):
       --batch_size 4 --resolution 32 --inv_steps 5 --max_images 8 \\
       --device cpu
 
-Not ported yet, and refused with an error naming their ROADMAP.md item:
-orbax checkpoints (a --resume_from or --coord_resume_from that is not a
-.pth file) and more than one device (--chips, --gpus, --multihost).
+More than one device (parallel/mesh.py): under torchrun or with --gpus N
+the batch is batch_size // 4 images a rank, as in the JAX package; every
+rank takes the same global batch and inverts its rows (the loss is a
+per-image sum, so each image's steps do not depend on the others), its
+draws the global draws' rows, and the report's rows are gathered in
+order, so the report is the one-device run's at the same global batch;
+rank 0 alone writes it.
+
+Refused: orbax checkpoints (a --resume_from or --coord_resume_from that
+is not a .pth file).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from nerf_from_image_tpu_torch.engine.inversion import (
     build_camera,
     pose_params_from_matrix,
 )
+from nerf_from_image_tpu_torch.parallel import mesh
 from nerf_from_image_tpu_torch.pose.pnp import estimate_poses_batch
 from nerf_from_image_tpu_torch.utils.device import (
     check_on_device,
@@ -96,15 +104,6 @@ def first_guess(
     return z0, pose_params_from_matrix(pose, focal, config.camera_flipped)
 
 
-def refuse_multi_device(args) -> None:
-    """Raises for --chips/--gpus > 1 and --multihost: the drivers run on
-    one device."""
-    if args.chips > 1 or args.multihost:
-        raise NotImplementedError(
-            "the port drives one device; more (--chips/--gpus > 1, --multihost) "
-            "come with ROADMAP.md section 1 item 8 (scale and persistence)")
-
-
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -154,8 +153,10 @@ def main(argv=None) -> Dict[str, object]:
         from nerf_from_image_tpu_torch import train_encoder
 
         return train_encoder.main(argv)
-    refuse_multi_device(args)
-    dev = resolve_device(args.device)
+    spawned, result = mesh.spawn_local(args, "nerf_from_image_tpu_torch.invert", argv)
+    if spawned:
+        return result
+    dev = mesh.maybe_init_multihost(args, args.device)
     set_strict_f32()  # the reference pins f32
     if args.dataset == "autodetect":
         # Dataset from the checkpoint/experiment name (reference:
@@ -297,9 +298,9 @@ def main(argv=None) -> Dict[str, object]:
         report.merge_notes_on_resume(metric_notes)
         resume_idx = report.num_samples()
         print(f"Resuming inversion report at image {resume_idx}")
-    # The reference's inversion batch on one device: batch_size // 4
-    # (run.py:1757).
-    bs = max(1, args.batch_size // 4)
+    # The reference's inversion batch a device: batch_size // 4
+    # (run.py:1757); each rank inverts its rows of the global batch.
+    bs = max(1, args.batch_size // 4) * mesh.world_size()
     generator = torch.Generator(device=dev).manual_seed(3)
 
     # Renders for the demo composite and TB grids: front and novel views
@@ -340,6 +341,9 @@ def main(argv=None) -> Dict[str, object]:
         if len(idx_perm) < bs:
             idx_perm = np.concatenate(
                 [idx_perm, np.repeat(idx_perm[-1:], bs - len(idx_perm))])
+        # The rank's rows of the global batch.
+        rows = mesh.row_block(bs)
+        idx, idx_perm = idx[rows], idx_perm[rows]
         sel = target_split.select(idx)
         # Novel-view (perm) split: p3d on the test set draws perm poses from
         # the training pose distribution (reference: run.py:1895-1906).
@@ -376,8 +380,9 @@ def main(argv=None) -> Dict[str, object]:
         perm_bbox = to_dev(sel_perm.bbox)
 
         def take_real(tree):
-            """Drops the padded tail rows before accumulation."""
-            return {k: host(v)[:n_real] for k, v in tree.items() if v is not None}
+            """Every rank's rows, in order, without the padded tail rows."""
+            rows_all = mesh.gather_rows({k: host(v) for k, v in tree.items() if v is not None})
+            return {k: v[:n_real] for k, v in rows_all.items()}
 
         def recovered(z, p):
             return take_real({"ws": z * inv_config.lr_gain_z, "R": p.q, "s": p.s,
@@ -415,8 +420,9 @@ def main(argv=None) -> Dict[str, object]:
 
         z_f, pose_f = z0, pose0
         if n_steps > 0:
-            z_f, pose_f, losses = invert(z0, pose0, target_img, generator=generator,
-                                         n_steps=n_steps)
+            with mesh.sharded_draws():
+                z_f, pose_f, losses = invert(z0, pose0, target_img, generator=generator,
+                                             n_steps=n_steps)
             part("refine")
             metrics_n = eval_fn(z_f, pose_f, target_img_fid, pose_gt, perm_pose,
                                 perm_focal, perm_imgs, center=front_center, bbox=front_bbox,
@@ -448,7 +454,7 @@ def main(argv=None) -> Dict[str, object]:
                 with torch.no_grad():
                     coords, mask_pred, _ = encoder(target_img[..., :3])
             rows = []
-            for b in range(n_real):
+            for b in range(target_img.shape[0]):
                 panels = [host(target_img[b, ..., :3])]
                 if coords is not None:
                     panels.append(coords_panel(host(coords[b]), host(mask_pred[b]),
@@ -464,7 +470,10 @@ def main(argv=None) -> Dict[str, object]:
             out_fname = (f"demo_manual_{args.dataset}_{n_steps}it.png"
                          if args.inv_manual_input_path
                          else f"sample_{args.dataset}_{n_steps}it.png")
-            save_image_grid(rows, os.path.join("outputs", out_fname))
+            # Every rank's rows, in order, without the padded ones.
+            rows = [r for part in mesh.gather_objects(rows) for r in part][:n_real]
+            if mesh.is_main():
+                save_image_grid(rows, os.path.join("outputs", out_fname))
             images_done += n_real
             break
 

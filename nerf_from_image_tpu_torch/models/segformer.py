@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from nerf_from_image_tpu_torch.parallel import mesh
 from nerf_from_image_tpu_torch.utils.device import resolve_device
 
 
@@ -66,7 +67,8 @@ def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = (torch.rand(shape, generator=generator, device=x.device) < keep).to(x.dtype)
+    mask = (mesh.draw(torch.rand, shape, generator=generator, device=x.device)
+            < keep).to(x.dtype)
     return x * mask / keep
 
 

@@ -22,6 +22,7 @@ from nerf_from_image_tpu_torch.models.layers import (
     normalize_latent,
 )
 from nerf_from_image_tpu_torch.ops import filters
+from nerf_from_image_tpu_torch.parallel import mesh
 
 
 class MappingNetwork(nn.Module):
@@ -69,8 +70,8 @@ class MappingNetwork(nn.Module):
 
 
 def _noise(generator, shape, like):
-    return torch.randn(shape, generator=generator, dtype=like.dtype,
-                       device=like.device)
+    return mesh.draw(torch.randn, shape, generator=generator, dtype=like.dtype,
+                     device=like.device)
 
 
 class SynthesisLayer(nn.Module):
@@ -257,17 +258,29 @@ class DiscriminatorBlock(nn.Module):
 def minibatch_std(x, group_size: int, num_channels: int = 1):
     """Appends the per-group feature standard deviation as num_channels
     channels (NCHW): groups are the outer split of the batch, channels
-    split into num_channels outer groups, as in the JAX package."""
+    split into num_channels outer groups, as in the JAX package. In a
+    sharded step on several ranks the groups are the global batch's (the
+    features gathered over ranks, autograd-aware), so the world size
+    changes no number."""
+    if mesh.batch_sharded():
+        rows, r = x.shape[0], mesh.rank()
+        y = _group_std(mesh.all_gather_rows(x), group_size, num_channels)
+        y = y[r * rows:(r + 1) * rows]
+    else:
+        y = _group_std(x, group_size, num_channels)
+    return torch.cat((x, y), dim=1)
+
+
+def _group_std(x, group_size: int, f: int):
     bs, c, h, w = x.shape
     ng = min(group_size, bs)
-    f = num_channels
     y = x.reshape(ng, bs // ng, f, c // f, h, w)
     y = y - torch.mean(y, dim=0, keepdim=True)
     y = torch.mean(torch.square(y), dim=0)
     y = torch.sqrt(y + 1e-8)
     y = torch.mean(y, dim=(2, 3, 4))  # [bs // ng, f]
     y = y.reshape(1, bs // ng, f, 1, 1).expand(ng, bs // ng, f, h, w)
-    return torch.cat((x, y.reshape(bs, f, h, w)), dim=1)
+    return y.reshape(bs, f, h, w)
 
 
 class DiscriminatorOutput(nn.Module):

@@ -4,6 +4,8 @@ Counterpart of nerf_from_image_tpu/ops/sampling.py, with the stratified
 volume samples of the SDF regularizers. Randomness comes from
 an explicit torch.Generator on the tensors' device; `generator=None`
 selects the deterministic variants (bin left edges, linspace quantiles).
+The draws go through parallel/mesh.py::draw, which on several ranks takes
+them at the global shape and keeps the rank's block.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from nerf_from_image_tpu_torch.parallel import mesh
 
 
 def compute_query_points_from_rays(
@@ -42,10 +46,8 @@ def compute_query_points_from_rays(
 
     if generator is not None:
         delta = (far_plane - near_plane) / num_samples
-        jitter = torch.rand(
-            depth_values.shape, generator=generator, dtype=dtype,
-            device=depth_values.device,
-        )
+        jitter = mesh.draw(torch.rand, depth_values.shape, generator=generator,
+                           dtype=dtype, device=depth_values.device)
         depth_values = depth_values + jitter * delta
 
     query_points = (
@@ -63,8 +65,8 @@ def sample_pdf(
 ) -> torch.Tensor:
     """Inverse-CDF sampling of new depths from per-bin weights.
 
-    bins: [N, M], nondecreasing along M; weights: [N, M-1]. Returns
-    [N, num_samples]. The searchsorted-and-gather of the reference is
+    bins: [..., M], nondecreasing along M; weights: [..., M-1]. Returns
+    [..., num_samples]. The searchsorted-and-gather of the reference is
     written, as in the JAX package, as masked prefix extrema: since cdf and
     bins are both nondecreasing, x[below] is the max of x over
     {m : cdf_m <= u} and x[above] the min over {m : cdf_m > u}.
@@ -80,7 +82,7 @@ def sample_pdf(
         u = torch.linspace(0.0, 1.0, num_samples, dtype=dtype, device=cdf.device)
         u = u.expand(shape)
     else:
-        u = torch.rand(shape, generator=generator, dtype=dtype, device=cdf.device)
+        u = mesh.draw(torch.rand, shape, generator=generator, dtype=dtype, device=cdf.device)
 
     mask = cdf[..., None, :] <= u[..., :, None]
 
@@ -123,6 +125,6 @@ def sample_volume_stratified(
     cells = torch.stack((gx, gy, gz), dim=-1).reshape(1, -1, 3)
     cells = cells.expand(batch_size, n * n * n, 3)
     if jitter is None:
-        jitter = torch.rand(cells.shape, generator=generator, dtype=dtype,
-                            device=device)
+        jitter = mesh.draw(torch.rand, cells.shape, generator=generator, dtype=dtype,
+                           device=device)
     return ((cells + jitter) / n * 2.0 - 1.0) * scene_range

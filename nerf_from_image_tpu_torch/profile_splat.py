@@ -401,7 +401,10 @@ def library_call(case: Case, inputs: ProbeInputs):
         P1 oy_only:      torch.bmm(oy^T, oy) over the blocks
         P1, other stages: torch.bmm(oy^T, Z) over the blocks (the window
                          products without their scatter into the plane)
-        P2 read_g:       g.sum over the points; read_ixy_2P: ixy.sum
+        P2 read_g:       g.sum over the points; read_ixy_P1 and
+                         read_ixy_2P: ixy.sum (the same sum from the
+                         stacked coordinates); transpose_2P: ixy's
+                         [2, P] blocks transposed, .contiguous()
     """
     if case.probe == "window":
         lhs, rhs = window_bmm_operands(inputs, case)
@@ -414,8 +417,10 @@ def library_call(case: Case, inputs: ProbeInputs):
     _, _, ixy, g, _ = inputs.points(case.P)
     if case.variant == "read_g":
         return lambda: g.sum(dim=(1, 2), dtype=torch.float32)
-    if case.variant == "read_ixy_2P":
+    if case.variant in ("read_ixy_P1", "read_ixy_2P"):
         return lambda: ixy.sum(dim=(1, 2, 3))
+    if case.variant == "transpose_2P":
+        return lambda: ixy.transpose(2, 3).contiguous()
     return None
 
 

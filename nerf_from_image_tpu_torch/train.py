@@ -31,15 +31,20 @@ seeded from (1234, i) (SDF pretraining step j: (4321, j)), so the run is a
 pure function of the iteration: a resume reproduces the straight run
 with no saved random state.
 
+More than one device (parallel/mesh.py): under torchrun
+(`torchrun --nproc_per_node=N -m nerf_from_image_tpu_torch.train ...`) or
+with --gpus N (N local processes spawned), every rank draws the global
+batch of --batch_size and keeps its rows, the steps average their
+gradients over the ranks, and rank 0 alone writes checkpoints and logs:
+the run is the one-device run's whatever the number of ranks.
+
 Example (random weights, on the CPU):
   python -m nerf_from_image_tpu_torch.train --dataset synthetic \\
       --resolution 16 --batch_size 4 --iterations 4 --max_images 8 \\
       --sdf_pretrain_steps 2 --device cpu
 
-Not ported yet, and refused at start-up with an error naming their
-ROADMAP.md item: more than one device (--chips, --gpus, --multihost) and
-orbax checkpoints (a --resume_from that is not a .pth file or a
-directory of them).
+Refused at start-up: orbax checkpoints (a --resume_from that is not a
+.pth file or a directory of them).
 """
 
 from __future__ import annotations
@@ -53,7 +58,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from nerf_from_image_tpu_torch.utils.device import resolve_device, set_strict_f32, to_device
+from nerf_from_image_tpu_torch.parallel import mesh
+from nerf_from_image_tpu_torch.utils.device import set_strict_f32, to_device
 
 PRINT_ITERATION = 3  # the JAX driver's first print, after its compiles
 
@@ -173,14 +179,16 @@ def main(argv=None) -> Dict[str, object]:
 
         return invert.main(argv)
     from nerf_from_image_tpu_torch.engine.gan_eval import inception_weights_path
-    from nerf_from_image_tpu_torch.invert import refuse_multi_device
 
-    refuse_multi_device(args)
+    spawned, result = mesh.spawn_local(args, "nerf_from_image_tpu_torch.train", argv)
+    if spawned:
+        return result
     if args.resume_from:
         if not os.path.exists(args.resume_from):
             raise ValueError(f"Specified checkpoint {args.resume_from} does not exist!")
         resume_path = ckpt.resolve_checkpoint_path(args.resume_from)
-    dev = resolve_device(args.device)
+    dev = mesh.maybe_init_multihost(args, args.device)
+    mesh.local_batch(args.batch_size)  # W must divide the batch
     set_strict_f32()  # the reference pins f32
     if args.dataset == "autodetect":
         raise ValueError("--dataset required for training")
@@ -229,7 +237,8 @@ def main(argv=None) -> Dict[str, object]:
                 train_eval_split.focal_length, train_eval_split.bbox)
             train_eval_split = dataclasses.replace(
                 train_eval_split, tform_cam2world=e_pose, focal_length=e_focal, bbox=e_bbox)
-    print(f"Device {dev}, dataset {len(train_split)} images")
+    print(f"Device {dev} (rank {mesh.rank()} of {mesh.world_size()}), dataset "
+          f"{len(train_split)} images")
 
     num_classes = train_split.num_classes if args.use_class else None
     nc = 4 if args.supervise_alpha else 3
@@ -293,27 +302,28 @@ def main(argv=None) -> Dict[str, object]:
             state.load_state_dict(restored)
             start_iter = restored_iter
         del restored
+    # Every rank starts from rank 0's state.
+    mesh.replicate_modules(state.model, state.ema, state.disc, state.disc2)
+    for opt in (state.opt_g, state.opt_d, state.opt_d2):
+        if opt is not None:
+            mesh.replicate(opt.mu + opt.nu)
 
     sampler = StepIndexedSampler(len(train_split), seed=1234)
 
     def host_batch(draw: int, with_images: bool) -> Dict[str, torch.Tensor]:
+        """The rank's rows of the global batch of draw `draw`."""
         sel = train_split.select(sampler(draw, args.batch_size))
-
-        def put(x, dtype=torch.float32):
-            return to_device(x, dev, dtype)
-
-        batch = {"pose": put(sel.tform_cam2world)}
-        if sel.focal_length is not None:
-            batch["focal"] = put(sel.focal_length)
-        if sel.center is not None:
-            batch["center"] = put(sel.center)
-        if args.use_class and sel.classes is not None:
-            batch["classes"] = put(sel.classes, torch.long)
+        batch = {"pose": sel.tform_cam2world, "focal": sel.focal_length,
+                 "center": sel.center}
+        if args.use_class:
+            batch["classes"] = sel.classes
         if with_images or args.use_encoder:
-            batch["images"] = put(sel.images[..., :nc])
+            batch["images"] = sel.images[..., :nc]
             if with_images and sel.images_highres is not None:
-                batch["images_highres"] = put(sel.images_highres[..., :nc])
-        return batch
+                batch["images_highres"] = sel.images_highres[..., :nc]
+        return {k: to_device(v, dev, torch.long if k == "classes" else torch.float32)
+                for k, v in mesh.shard_batch(batch, args.batch_size).items()
+                if v is not None}
 
     pretrain_steps = 0
     if args.use_sdf and start_iter == 0:
@@ -327,12 +337,13 @@ def main(argv=None) -> Dict[str, object]:
             if args.use_encoder:
                 idx = torch.randint(0, len(train_split), (args.batch_size,), generator=g,
                                     device=dev)
-                images = torch.as_tensor(
-                    train_split.select(idx.cpu().numpy()).images[..., :3],
-                    dtype=torch.float32).to(dev)
+                images = to_device(mesh.shard_batch(
+                    train_split.select(idx.cpu().numpy()).images[..., :3], args.batch_size),
+                    dev)
             if args.use_class:
-                labels = torch.randint(0, train_split.num_classes, (args.batch_size,),
-                                       generator=g, device=dev)
+                labels = mesh.shard_batch(
+                    torch.randint(0, train_split.num_classes, (args.batch_size,),
+                                  generator=g, device=dev), args.batch_size)
             loss = gan.sdf_pretrain_step(config, model, pre_opt, g, cond_image=images,
                                          labels=labels)
             if i % 100 == 0:
@@ -434,8 +445,9 @@ def _log_eval(writer, metrics: Dict[str, object], i: int, best_fid: float,
         best_fid = fid
         ckpt.save_train_checkpoint(os.path.join(checkpoint_dir, "checkpoint_best.pth"),
                                    state.state_dict())
-        with open(os.path.join(checkpoint_dir, "best_fid.json"), "w") as f:
-            json.dump({"best_fid": best_fid}, f)
+        if mesh.is_main():
+            with open(os.path.join(checkpoint_dir, "best_fid.json"), "w") as f:
+                json.dump({"best_fid": best_fid}, f)
     return best_fid
 
 

@@ -21,6 +21,10 @@ encoder in the reference's names, which the inversion driver's
 --coord_resume_from; a reference-format file that holds only
 'model_coord' warm-starts the weights alone.
 
+More than one device (parallel/mesh.py): under torchrun or with --gpus N
+every rank draws the global batch and keeps its rows, the gradients and
+losses are averaged over the ranks, and rank 0 alone writes checkpoints.
+
 Example (random weights, on the CPU):
   python -m nerf_from_image_tpu_torch.train_encoder --dataset synthetic \\
       --resolution 32 --batch_size 2 --iterations 3 --max_images 8 --device cpu
@@ -34,7 +38,8 @@ from typing import Dict
 
 import torch
 
-from nerf_from_image_tpu_torch.utils.device import resolve_device, set_strict_f32, to_device
+from nerf_from_image_tpu_torch.parallel import mesh
+from nerf_from_image_tpu_torch.utils.device import set_strict_f32, to_device
 
 DEFAULT_ITERATIONS = 300000  # the flag's default, which means 120,000 here
 ENCODER_ITERATIONS = 120000
@@ -56,7 +61,6 @@ def main(argv=None) -> Dict[str, object]:
     from nerf_from_image_tpu_torch.data.splits import StepIndexedSampler
     from nerf_from_image_tpu_torch.engine import coord_regressor as cr
     from nerf_from_image_tpu_torch.engine.render import RenderConfig
-    from nerf_from_image_tpu_torch.invert import refuse_multi_device
     from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
     from nerf_from_image_tpu_torch.models.generator import Generator
     from nerf_from_image_tpu_torch.utils import checkpoint as ckpt
@@ -67,8 +71,11 @@ def main(argv=None) -> Dict[str, object]:
     )
 
     args = arguments.parse_args(argv)
-    refuse_multi_device(args)
-    dev = resolve_device(args.device)
+    spawned, result = mesh.spawn_local(args, "nerf_from_image_tpu_torch.train_encoder", argv)
+    if spawned:
+        return result
+    dev = mesh.maybe_init_multihost(args, args.device)
+    mesh.local_batch(args.batch_size)  # W must divide the batch
     set_strict_f32()  # the reference pins f32
     if args.dataset == "autodetect":
         # The dataset from the checkpoint's name.
@@ -133,6 +140,9 @@ def main(argv=None) -> Dict[str, object]:
             start_iter = int(state["iteration"])
             print(f"Resuming encoder training from {resume_path} (iteration {start_iter})")
         del state
+    # Every rank starts from rank 0's weights and optimizer state.
+    mesh.replicate_modules(encoder)
+    mesh.replicate(opt.mu + opt.nu)
 
     sampler = StepIndexedSampler(len(train_split), seed=1234)
 
@@ -141,14 +151,14 @@ def main(argv=None) -> Dict[str, object]:
     last_checkpoint = None
     t0 = time.time()
     for i in range(start_iter, config.max_iters):
+        # The rank's rows of the global batch.
         sel = train_split.select(sampler(i, args.batch_size))
-        batch = {"pose": to_device(sel.tform_cam2world, dev)}
-        for name, value in (("focal", sel.focal_length), ("center", sel.center),
-                            ("bbox", sel.bbox)):
-            if value is not None:
-                batch[name] = to_device(value, dev)
-        if args.use_class and sel.classes is not None:
-            batch["classes"] = to_device(sel.classes, dev, torch.long)
+        batch = {"pose": sel.tform_cam2world, "focal": sel.focal_length, "center": sel.center,
+                 "bbox": sel.bbox}
+        if args.use_class:
+            batch["classes"] = sel.classes
+        batch = {k: to_device(v, dev, torch.long if k == "classes" else torch.float32)
+                 for k, v in mesh.shard_batch(batch, args.batch_size).items() if v is not None}
         losses = cr.coord_train_step(config, render_config, model, encoder, opt, batch,
                                      generator, device=dev)
         if i % LOG_EVERY == 0 or i + 1 == config.max_iters:

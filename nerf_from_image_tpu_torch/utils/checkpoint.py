@@ -7,6 +7,9 @@ Its 'model_ema' entry is the EMA generator in the reference's state-dict
 names, so `utils/weights.py::load_reference_generator` (the inversion
 driver's --resume_from) reads it as it reads a reference checkpoint.
 
+In a data-parallel run (parallel/mesh.py) rank 0 alone writes, and the
+other ranks wait for it at a barrier.
+
 The JAX package's orbax checkpoint directories are not read here.
 """
 
@@ -18,6 +21,7 @@ from typing import Dict, Optional
 
 import torch
 
+from nerf_from_image_tpu_torch.parallel import mesh
 from nerf_from_image_tpu_torch.utils.weights import _NO_ORBAX
 
 _NUMBERED = re.compile(r"^checkpoint_(\d+)\.pth$")
@@ -25,13 +29,16 @@ _NUMBERED = re.compile(r"^checkpoint_(\d+)\.pth$")
 
 def save_train_checkpoint(path: str, state: Dict[str, object]) -> None:
     """Writes `state` to `path` (a .pth file), through a temporary file so
-    that an interrupted save leaves the previous checkpoint whole."""
+    that an interrupted save leaves the previous checkpoint whole; on rank
+    0 alone, the other ranks waiting for it."""
     if not path.endswith(".pth"):
         raise ValueError(f"train checkpoints are .pth files, got {path}")
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save(state, tmp)
-    os.replace(tmp, path)
+    if mesh.is_main():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+    mesh.barrier()
 
 
 def load_train_checkpoint(path: str) -> Dict[str, object]:

@@ -2,8 +2,8 @@
 
 Mirrors the reference's TensorBoard usage (reference: run.py:1407-1472
 image grids, scalar curves) through tensorboardX; degrades to a no-op when
-the package is unavailable. This package's copy of the JAX package's
-utils/tb.py.
+the package is unavailable, and on every rank but rank 0 of a
+data-parallel run. This package's copy of the JAX package's utils/tb.py.
 """
 
 from __future__ import annotations
@@ -15,8 +15,10 @@ import numpy as np
 
 class Logger:
     def __init__(self, log_dir: Optional[str]):
+        from nerf_from_image_tpu_torch.parallel import mesh
+
         self._writer = None
-        if log_dir is not None:
+        if log_dir is not None and mesh.is_main():
             try:
                 from tensorboardX import SummaryWriter
 

@@ -194,8 +194,8 @@ def lpips_state_to_state_dict(torch_state: Dict[str, Any]) -> Dict[str, torch.Te
 # Reference checkpoints written by the JAX package's orbax checkpointer
 # need orbax, which this package does not import.
 _NO_ORBAX = ("{path} is not a .pth file, so it is an orbax checkpoint of the JAX "
-             "package; the port reads reference .pth checkpoints only (orbax "
-             "checkpoints come with ROADMAP.md section 1 item 8, scale and persistence)")
+             "package; the port reads reference .pth checkpoints only (reading orbax "
+             "needs the JAX package's libraries)")
 
 
 def load_torch_checkpoint(path: str, key: Optional[str] = None) -> Dict[str, torch.Tensor]:

@@ -316,21 +316,26 @@ def test_nusc_composites_match_jax(nusc_runs):
 @pytest.mark.parametrize("request_kind", ["orbax", "orbax_encoder", "chips", "multihost",
                                           "no_card", "dataset", "demo_frame"])
 def test_unported_requests_raise(request_kind, files, tmp_path, monkeypatch):
-    """Orbax checkpoints and more than one device raise, naming ROADMAP.md
-    section 1 item 8; without --device cpu the drivers need a card; an
-    unknown dataset or frame raises. None falls back silently."""
+    """Orbax checkpoints raise; the evaluation runs on several devices, but
+    a --chips that disagrees with the launcher's group raises, and the demo
+    refuses more than one device; without --device cpu the drivers need a
+    card; an unknown dataset or frame raises. None falls back silently."""
     _port_env(monkeypatch, files, tmp_path)
     argv = _argv(files, "nusc") + ["--root_path", str(tmp_path), "--device", "cpu"]
-    main, match, error = eval_driving.main, "ROADMAP.md section 1 item 8", NotImplementedError
+    main, match, error = eval_driving.main, "orbax checkpoint", NotImplementedError
     if request_kind == "orbax":
         argv += ["--resume_from", str(tmp_path)]
     elif request_kind == "orbax_encoder":
         argv += ["--coord_resume_from", str(tmp_path)]
     elif request_kind == "chips":
+        for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"), ("MASTER_ADDR", "127.0.0.1"),
+                     ("MASTER_PORT", "29500")):
+            monkeypatch.setenv(k, v)
         argv += ["--chips", "2"]
+        match, error = "under a launcher of 1 ranks", ValueError
     elif request_kind == "multihost":
         argv += ["--multihost"]
-        main = demo_driving.main
+        main, match = demo_driving.main, "one device"
     elif request_kind == "no_card":
         if torch.cuda.is_available():
             pytest.skip("a CUDA card is present: the default device is valid")

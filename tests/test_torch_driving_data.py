@@ -122,9 +122,10 @@ def test_png_reader_decodes_every_row_filter(filters, tmp_path):
 
 
 def test_png_writer_and_the_fallbacks(tmp_path, monkeypatch):
-    """write_png's gray and RGB files read back through imageio; a JPG and
-    a palette PNG go through imageio, and raise naming the file without
-    it; image_shape reads a JPG's size from its header."""
+    """write_png's gray and RGB files read back through imageio; a palette
+    PNG goes through imageio, and raises naming the file without it; a JPG
+    is decoded by the port itself (read_jpeg), with or without imageio;
+    image_shape reads a JPG's size from its header."""
     rng = np.random.default_rng(3)
     gray, rgb = _image(rng, "gray"), _image(rng, "rgb")
     for name, img in (("g.png", gray), ("g1.png", gray[..., None]), ("c.png", rgb)):
@@ -143,10 +144,12 @@ def test_png_writer_and_the_fallbacks(tmp_path, monkeypatch):
             images.read_png(path)
         np.testing.assert_array_equal(images.read_image(path), imageio.imread(path))
     assert images.image_shape(jpg) == rgb.shape[:2]
+    jpg_pixels = imageio.imread(jpg)
     monkeypatch.setitem(sys.modules, "imageio", None)
     monkeypatch.setitem(sys.modules, "imageio.v2", None)
-    with pytest.raises(ImportError, match="x.jpg"):
-        images.read_image(jpg)
+    with pytest.raises(ImportError, match="p.png"):
+        images.read_image(pal)
+    np.testing.assert_array_equal(images.read_image(jpg), jpg_pixels)
     np.testing.assert_array_equal(images.read_image(str(tmp_path / "c.png")), rgb)
 
 

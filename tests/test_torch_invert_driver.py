@@ -393,21 +393,23 @@ def test_report_fid_front_and_random(files, tmp_path, monkeypatch):
 @pytest.mark.parametrize("request_kind", ["chips", "gpus", "orbax", "orbax_encoder",
                                           "no_card", "no_mask"])
 def test_unported_requests_raise(request_kind, files, tmp_path, monkeypatch):
-    """More than one device and orbax checkpoints raise errors naming their
-    ROADMAP.md item; without --device cpu the driver needs a card; a demo
+    """A --chips/--gpus that disagrees with the launcher's group and orbax
+    checkpoints raise; without --device cpu the driver needs a card; a demo
     image without a mask raises the JAX package's error. None falls back
     silently."""
     _port_env(monkeypatch, files, tmp_path)
     argv = ARGV + ["--root_path", str(tmp_path), "--device", "cpu"]
-    match, error = "ROADMAP.md section 1 item 8", NotImplementedError
+    match, error = "orbax", NotImplementedError
     if request_kind in ("chips", "gpus"):
+        for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"), ("MASTER_ADDR", "127.0.0.1"),
+                     ("MASTER_PORT", "29500")):
+            monkeypatch.setenv(k, v)
         argv += [f"--{request_kind}", "2"]
+        match, error = "under a launcher of 1 ranks", ValueError
     elif request_kind == "orbax":
         argv += ["--resume_from", str(tmp_path)]
-        match = "orbax"
     elif request_kind == "orbax_encoder":
         argv += ["--coord_resume_from", str(tmp_path)]
-        match = "orbax"
     elif request_kind == "no_card":
         if torch.cuda.is_available():
             pytest.skip("a CUDA card is present: the default device is valid")

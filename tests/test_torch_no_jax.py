@@ -42,8 +42,8 @@ print(len(names))
 
 # What the card machine lacks besides JAX: image I/O, TensorBoard, OpenCV
 # and detectron2. With those blocked too, the driver still imports, builds
-# the synthetic split, logs to a no-op TensorBoard sink and writes its demo
-# PNG (the standard library's zlib).
+# the synthetic split, logs to a no-op TensorBoard sink, writes its demo
+# PNG (the standard library's zlib) and decodes the committed JPEG frame.
 _CARD_MACHINE = _BLOCKER.replace(
     '"timing")', '"timing", "imageio", "PIL", "tensorboardX", "cv2", "detectron2")'
 ).split("import nerf_from_image_tpu_torch as pkg")[0] + r"""
@@ -61,6 +61,9 @@ path = os.path.join(tempfile.mkdtemp(), "outputs", "grid.png")
 images.save_image_grid([[im, -im] for im in train.images], path)
 grid = images.read_png(path)
 assert grid.shape == (48, 32, 3), grid.shape
+from nerf_from_image_tpu_torch.data.jpeg import FIXTURE_DIR
+frame = images.read_image(os.path.join(FIXTURE_DIR, "n008-fixture__CAM_FRONT__0000.jpg"))
+assert frame.shape == (900, 1600, 3), frame.shape
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("ok")
@@ -124,7 +127,8 @@ def test_every_module_imports_with_jax_blocked():
                    "data.driving", "data.nusc_lite", "data.devkit", "data.driving_fixtures",
                    "engine.gan", "engine.regularizers", "models.discriminator",
                    "utils.checkpoint", "train", "metrics.fid", "models.inception",
-                   "engine.gan_eval", "engine.coord_regressor", "train_encoder"):
+                   "engine.gan_eval", "engine.coord_regressor", "train_encoder",
+                   "parallel.mesh", "data.jpeg.make_fixtures"):
         assert f"nerf_from_image_tpu_torch.{module}" in names, module
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER], cwd=REPO, capture_output=True,

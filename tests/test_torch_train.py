@@ -174,14 +174,21 @@ def test_checkpoint_loads_into_the_inversion_driver(first_run, tiny, tmp_path):
 
 @pytest.mark.parametrize("request_kind", ["chips", "orbax"])
 def test_unported_requests_raise(request_kind, tiny, tmp_path, monkeypatch):
+    """A --chips that disagrees with the launcher's group raises, and so
+    does an orbax checkpoint."""
     argv = BASE + ["--iterations", "2", "--root_path", str(tmp_path)]
     if request_kind == "chips":
+        for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"), ("MASTER_ADDR", "127.0.0.1"),
+                     ("MASTER_PORT", "29500")):
+            monkeypatch.setenv(k, v)
         argv += ["--chips", "2"]
+        error, match = ValueError, "under a launcher of 1 ranks"
     else:
         orbax = tmp_path / "checkpoint_4"
         orbax.mkdir()
         argv += ["--resume_from", str(orbax)]
-    with pytest.raises(NotImplementedError, match="item 8"):
+        error, match = NotImplementedError, "orbax checkpoint"
+    with pytest.raises(error, match=match):
         train.main(argv)
     assert not tiny
 
