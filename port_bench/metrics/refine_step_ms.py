@@ -1,0 +1,6 @@
+"""`refine_step_ms`: the host-clock milliseconds a step of the `refine` span takes in
+the traced run's window, each span between device synchronizes."""
+
+
+def read(run):
+    return run.spans.ms("refine")
