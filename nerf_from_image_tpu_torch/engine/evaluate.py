@@ -31,7 +31,7 @@ from nerf_from_image_tpu_torch.metrics import fid as fid_mod
 from nerf_from_image_tpu_torch.metrics import image as image_metrics
 from nerf_from_image_tpu_torch.parallel import mesh
 from nerf_from_image_tpu_torch.pose.pose import rotation_matrix_distance
-from nerf_from_image_tpu_torch.utils import fileio
+from nerf_from_image_tpu_torch.utils import fileio, trace
 from nerf_from_image_tpu_torch.utils.device import check_on_device, resolve_device
 
 def make_eval_fn(
@@ -78,36 +78,38 @@ def make_eval_fn(
                         gt_cam2world=gt_cam2world, perm_pose=perm_pose)
         cam, focal = build_camera(pose_params, config.camera_flipped)
         out = render_view(z, cam, focal, center, bbox)
-        pred = torch.clamp(out.rgb[..., :3], -1.0, 1.0)
-        target = target_img[..., :3]
+        with trace.span("eval.metrics"):
+            pred = torch.clamp(out.rgb[..., :3], -1.0, 1.0)
+            target = target_img[..., :3]
 
-        res: Dict[str, torch.Tensor] = {}
-        res["psnr"] = image_metrics.psnr(pred / 2 + 0.5, target / 2 + 0.5,
-                                         reduction="none")
-        res["ssim"] = image_metrics.ssim(pred / 2 + 0.5, target / 2 + 0.5,
-                                         reduction="none")
-        if has_mask and target_img.shape[-1] > 3:
-            res["iou"] = image_metrics.iou(out.mask, target_img[..., 3],
-                                           reduction="none")
-        res["lpips"] = lpips(pred, target).reshape(-1)
-        if gt_cam2world is not None:
-            res["rot_error"] = rotation_matrix_distance(cam, gt_cam2world)
-        if inception_model is not None:
-            res["inception_activations_front"] = inception_model(pred / 2 + 0.5)
+            res: Dict[str, torch.Tensor] = {}
+            res["psnr"] = image_metrics.psnr(pred / 2 + 0.5, target / 2 + 0.5,
+                                             reduction="none")
+            res["ssim"] = image_metrics.ssim(pred / 2 + 0.5, target / 2 + 0.5,
+                                             reduction="none")
+            if has_mask and target_img.shape[-1] > 3:
+                res["iou"] = image_metrics.iou(out.mask, target_img[..., 3],
+                                               reduction="none")
+            res["lpips"] = lpips(pred, target).reshape(-1)
+            if gt_cam2world is not None:
+                res["rot_error"] = rotation_matrix_distance(cam, gt_cam2world)
+            if inception_model is not None:
+                res["inception_activations_front"] = inception_model(pred / 2 + 0.5)
 
         if perm_pose is not None and (perm_target is not None
                                       or inception_model is not None):
             out_r = render_view(z, perm_pose, perm_focal, perm_center, perm_bbox)
-            pred_r = torch.clamp(out_r.rgb[..., :3], -1.0, 1.0)
-            if perm_target is not None:
-                target_r = perm_target[..., :3]
-                res["psnr_random"] = image_metrics.psnr(
-                    pred_r / 2 + 0.5, target_r / 2 + 0.5, reduction="none")
-                res["ssim_random"] = image_metrics.ssim(
-                    pred_r / 2 + 0.5, target_r / 2 + 0.5, reduction="none")
-                res["lpips_random"] = lpips(pred_r, target_r).reshape(-1)
-            if inception_model is not None:
-                res["inception_activations_random"] = inception_model(pred_r / 2 + 0.5)
+            with trace.span("eval.metrics"):
+                pred_r = torch.clamp(out_r.rgb[..., :3], -1.0, 1.0)
+                if perm_target is not None:
+                    target_r = perm_target[..., :3]
+                    res["psnr_random"] = image_metrics.psnr(
+                        pred_r / 2 + 0.5, target_r / 2 + 0.5, reduction="none")
+                    res["ssim_random"] = image_metrics.ssim(
+                        pred_r / 2 + 0.5, target_r / 2 + 0.5, reduction="none")
+                    res["lpips_random"] = lpips(pred_r, target_r).reshape(-1)
+                if inception_model is not None:
+                    res["inception_activations_random"] = inception_model(pred_r / 2 + 0.5)
         return res
 
     return eval_fn

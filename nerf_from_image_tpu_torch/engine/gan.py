@@ -43,6 +43,7 @@ from nerf_from_image_tpu_torch.engine import regularizers
 from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
 from nerf_from_image_tpu_torch.ops import filters
 from nerf_from_image_tpu_torch.parallel import mesh
+from nerf_from_image_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +156,7 @@ def _params(module: torch.nn.Module) -> List[torch.nn.Parameter]:
     return list(module.parameters())
 
 
+@trace.spanned("gan.backward")
 def param_grads(loss: torch.Tensor, params: List[torch.nn.Parameter]) -> List[torch.Tensor]:
     """d loss / d params, zeros for a parameter the loss does not use (the
     noise strengths without StyleGAN noise), as JAX's grad gives, averaged
@@ -282,6 +284,7 @@ def _draw(draws: Dict, name: str, make: Callable[[], torch.Tensor]):
     return make() if value is None else value
 
 
+@trace.spanned("gan.augment")
 def _augment_camera(config, state, generator, pose, focal, tform):
     _, pose, focal, _ = augment_mod.augment(
         generator, None, pose, focal, state.augment_p_eff, config.white_background,
@@ -289,6 +292,7 @@ def _augment_camera(config, state, generator, pose, focal, tform):
     return pose, focal
 
 
+@trace.spanned("gan.g_step")
 @mesh.sharded_step
 def g_step(
     config: GANTrainConfig,
@@ -340,8 +344,9 @@ def g_step(
         diff = img[..., :3] - target
         loss = torch.mean(torch.square(diff) if config.dual_mse else regularizers.abs_jax(diff)) * 10.0
     else:
-        logits = state.disc(img, pose, cond_rgb, focal, labels)
-        loss = softplus_gan_loss(logits, True)
+        with trace.span("gan.disc"):
+            logits = state.disc(img, pose, cond_rgb, focal, labels)
+            loss = softplus_gan_loss(logits, True)
     metrics = {"loss_g": loss.detach()}
 
     if config.dual_discriminator:
@@ -350,58 +355,62 @@ def g_step(
                          center=batch2.get("center"), bbox=batch2.get("bbox"),
                          generator=generator, device=dev, label=labels, image=cond_rgb,
                          noise_mode=config.noise_mode)
-        logits2 = state.disc2(_disc_input(out2, config), pose2, None, focal2)
-        loss2 = softplus_gan_loss(logits2, True)
+        with trace.span("gan.disc"):
+            logits2 = state.disc2(_disc_input(out2, config), pose2, None, focal2)
+            loss2 = softplus_gan_loss(logits2, True)
         metrics["loss_g_uncond"] = loss2.detach()
         loss = loss + loss2 / 2.0
 
-    if "bins" in draws:
-        bins, perturb = draws["bins"], draws.get("perturb")
-    else:
-        bins, perturb = regularizers.volume_samples(model, B, generator, dev)
-    regs = regularizers.volume_regularizers(
-        model, aux["planes"], bins, perturb, want_eikonal=config.use_sdf,
-        want_tv=config.tv > 0, want_entropy=config.entropy > 0)
-    warmup_mul = torch.clamp_max(_f32(state.iteration, dev) / config.blur_warmup_iters, 1.0)
-    if config.use_sdf:
-        eik = torch.mean(regs["sdf_eikonal_loss"])
-        loss = loss + config.eikonal * eik
-        metrics["loss_eikonal"] = eik.detach()
-    if config.tv > 0:
-        tv = torch.mean(regs["total_variation_loss"])
-        loss = loss + config.tv * warmup_mul * tv
-        metrics["loss_tv"] = tv.detach()
-    if config.entropy > 0:
-        ent = torch.mean(regs["entropy_loss"])
-        loss = loss + config.entropy * warmup_mul * ent
-        metrics["loss_entropy"] = ent.detach()
+    with trace.span("gan.regularizers"):
+        if "bins" in draws:
+            bins, perturb = draws["bins"], draws.get("perturb")
+        else:
+            bins, perturb = regularizers.volume_samples(model, B, generator, dev)
+        regs = regularizers.volume_regularizers(
+            model, aux["planes"], bins, perturb, want_eikonal=config.use_sdf,
+            want_tv=config.tv > 0, want_entropy=config.entropy > 0)
+        warmup_mul = torch.clamp_max(_f32(state.iteration, dev) / config.blur_warmup_iters, 1.0)
+        if config.use_sdf:
+            eik = torch.mean(regs["sdf_eikonal_loss"])
+            loss = loss + config.eikonal * eik
+            metrics["loss_eikonal"] = eik.detach()
+        if config.tv > 0:
+            tv = torch.mean(regs["total_variation_loss"])
+            loss = loss + config.tv * warmup_mul * tv
+            metrics["loss_tv"] = tv.detach()
+        if config.entropy > 0:
+            ent = torch.mean(regs["entropy_loss"])
+            loss = loss + config.entropy * warmup_mul * ent
+            metrics["loss_entropy"] = ent.detach()
 
-    ppl_avg = state.ppl_running_avg
-    if config.path_length_regularization:
-        ppl = regularizers.path_length(model, aux["ws"], draws.get("ppl_noise"), generator)
-        pl_weight = config.pl_weight * torch.clamp_max(
-            _f32(state.iteration, dev) / config.lr_warmup_iters, 1.0)
-        ppl_mean = mesh.mean(torch.mean(ppl.detach()))  # over the global batch
-        ppl_avg = torch.where(state.ppl_running_avg < 0, ppl_mean.detach(),
-                              state.ppl_running_avg)
-        # The running-average target is detached: no gradient flows
-        # through mean(ppl) into the penalty's target.
-        pl_mean = (ppl_avg * (1 - config.pl_decay) + ppl_mean * config.pl_decay).detach()
-        ppl_loss = torch.mean(torch.square(ppl - pl_mean))
-        loss = loss + pl_weight * ppl_loss
-        metrics["loss_ppl"] = ppl_loss.detach()
-        ppl_avg = pl_mean
+        ppl_avg = state.ppl_running_avg
+        if config.path_length_regularization:
+            ppl = regularizers.path_length(model, aux["ws"], draws.get("ppl_noise"), generator)
+            pl_weight = config.pl_weight * torch.clamp_max(
+                _f32(state.iteration, dev) / config.lr_warmup_iters, 1.0)
+            ppl_mean = mesh.mean(torch.mean(ppl.detach()))  # over the global batch
+            ppl_avg = torch.where(state.ppl_running_avg < 0, ppl_mean.detach(),
+                                  state.ppl_running_avg)
+            # The running-average target is detached: no gradient flows
+            # through mean(ppl) into the penalty's target.
+            pl_mean = (ppl_avg * (1 - config.pl_decay) + ppl_mean * config.pl_decay).detach()
+            ppl_loss = torch.mean(torch.square(ppl - pl_mean))
+            loss = loss + pl_weight * ppl_loss
+            metrics["loss_ppl"] = ppl_loss.detach()
+            ppl_avg = pl_mean
 
     grads = param_grads(loss, _params(model))
-    state.opt_g.step(grads)
-    clamp_sdf_params(model, config.use_sdf)
-    update_ema(state.ema, model, state.iteration)
-    metrics["grad_norm_g"] = global_norm(grads).detach()
+    with trace.span("gan.optimizer"):
+        state.opt_g.step(grads)
+        clamp_sdf_params(model, config.use_sdf)
+        update_ema(state.ema, model, state.iteration)
+        metrics["grad_norm_g"] = global_norm(grads).detach()
     state.ppl_running_avg = ppl_avg
     state.iteration += 1
     return mesh.mean_metrics(metrics)
 
 
+@trace.spanned("gan.augment")
 def prepare_real_phase(config, state, batch, generator, tform=None):
     """ADA-augments image and camera together (the high-resolution images,
     pooled back, where the batch has them), then the warm-up blur.
@@ -445,15 +454,18 @@ def d_branch(config: GANTrainConfig, disc, real, fake, suffix: str = ""):
     real_img, pose_r, focal_r, cond_r, label_r = real
     fake_img, pose_f, focal_f, cond_f, label_f = fake
     real_img = real_img.detach().requires_grad_(config.r1 > 0)
-    logits_real = disc(real_img, pose_r, cond_r, focal_r, label_r)
-    loss_real = softplus_gan_loss(logits_real, True)
-    grad_penalty = torch.zeros((), device=real_img.device)
-    if config.r1 > 0:
-        (g_img,) = torch.autograd.grad(logits_real.sum(), real_img, create_graph=True)
-        grad_penalty = torch.mean(torch.sum(torch.square(g_img.reshape(g_img.shape[0], -1)),
-                                            dim=1))
-    logits_fake = disc(fake_img, pose_f, cond_f, focal_f, label_f)
-    loss_fake = softplus_gan_loss(logits_fake, False)
+    with trace.span("gan.disc"):
+        logits_real = disc(real_img, pose_r, cond_r, focal_r, label_r)
+        loss_real = softplus_gan_loss(logits_real, True)
+    with trace.span("gan.regularizers"):
+        grad_penalty = torch.zeros((), device=real_img.device)
+        if config.r1 > 0:
+            (g_img,) = torch.autograd.grad(logits_real.sum(), real_img, create_graph=True)
+            grad_penalty = torch.mean(torch.sum(
+                torch.square(g_img.reshape(g_img.shape[0], -1)), dim=1))
+    with trace.span("gan.disc"):
+        logits_fake = disc(fake_img, pose_f, cond_f, focal_f, label_f)
+        loss_fake = softplus_gan_loss(logits_fake, False)
     loss = loss_real + (config.r1 / 2.0) * grad_penalty + loss_fake
     grads = param_grads(loss, _params(disc))
     metrics = {
@@ -465,6 +477,7 @@ def d_branch(config: GANTrainConfig, disc, real, fake, suffix: str = ""):
     return grads, metrics
 
 
+@trace.spanned("gan.d_step")
 @mesh.sharded_step
 def d_step(
     config: GANTrainConfig,
@@ -510,7 +523,8 @@ def d_step(
                              (real_img, pose_r, focal_r, cond_r, label_r),
                              (fake_img, pose_f, focal_f, cond_f, label_f))
         metrics.update(m0)
-        metrics["grad_norm_d"] = global_norm(grads).detach()
+        with trace.span("gan.optimizer"):
+            metrics["grad_norm_d"] = global_norm(grads).detach()
 
     grads2 = None
     if config.dual_discriminator:
@@ -528,19 +542,20 @@ def d_step(
     # Global losses and ADA's sign before the p update.
     metrics = mesh.mean_metrics(metrics)
 
-    if grads is not None and grads2 is not None:
-        # One clip over both discriminators' parameters, by their joint
-        # norm; each optimizer's own clip is then a no-op.
-        joint_norm = global_norm(grads + grads2)
-        scale = torch.clamp_max(config.clip_gradient_norm / torch.clamp_min(joint_norm, 1e-12),
-                                1.0)
-        grads = [g * scale for g in grads]
-        grads2 = [g * scale for g in grads2]
-        metrics["grad_norm_d"] = joint_norm.detach()
-    if grads is not None:
-        state.opt_d.step(grads)
-    if grads2 is not None:
-        state.opt_d2.step(grads2)
+    with trace.span("gan.optimizer"):
+        if grads is not None and grads2 is not None:
+            # One clip over both discriminators' parameters, by their joint
+            # norm; each optimizer's own clip is then a no-op.
+            joint_norm = global_norm(grads + grads2)
+            scale = torch.clamp_max(config.clip_gradient_norm / torch.clamp_min(joint_norm, 1e-12),
+                                    1.0)
+            grads = [g * scale for g in grads]
+            grads2 = [g * scale for g in grads2]
+            metrics["grad_norm_d"] = joint_norm.detach()
+        if grads is not None:
+            state.opt_d.step(grads)
+        if grads2 is not None:
+            state.opt_d2.step(grads2)
 
     # ADA adapts on the unconditional discriminator's sign when dual.
     sign_key = "sign_real_uncond" if config.dual_discriminator else "sign_real"

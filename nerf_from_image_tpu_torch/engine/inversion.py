@@ -23,6 +23,7 @@ import torch
 from nerf_from_image_tpu_torch.engine import augment as augment_mod
 from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
 from nerf_from_image_tpu_torch.pose.pose import matrix_to_pose, pose_to_matrix
+from nerf_from_image_tpu_torch.utils import trace
 from nerf_from_image_tpu_torch.utils.device import check_on_device, resolve_device
 
 LOSSES = ("vgg", "vgg_nocrop", "l1", "mse", "mixed")
@@ -162,7 +163,7 @@ def make_invert_fn(config: InversionConfig, render_config: RenderConfig, model,
         target = target_img[..., :3]
         target_features = None
         if config.loss in _PERCEPTUAL_LOSSES:
-            with torch.no_grad():
+            with torch.no_grad(), trace.span("invert.target_features"):
                 target_features = lpips.features(target)
         aug_generator = generator
         if aug_generator is None:
@@ -181,22 +182,26 @@ def make_invert_fn(config: InversionConfig, render_config: RenderConfig, model,
                                betas=(config.b1, config.b2), eps=1e-8)
         losses = []
         for _ in range(n):
-            out = render_current(z, pose, generator, center, bbox)
-            loss = reconstruction_loss(config, lpips, out.rgb[..., :3], target,
-                                       target_features, aug_generator)
-            # Gradients of the optimized leaves only: the generator's
-            # parameters take none.
-            for leaf, grad in zip(leaves, torch.autograd.grad(loss, leaves)):
-                leaf.grad = grad
-            if config.optimize_pose and not config.optimize_focal and pose.z0 is not None:
-                pose.z0.grad = torch.zeros_like(pose.z0)
-            opt.step()
-            if config.optimize_pose:
-                with torch.no_grad():
-                    for leaf, projected in zip(pose, _project(pose)):
-                        if leaf is not None:
-                            leaf.copy_(projected)
-            losses.append(loss.detach())
+            with trace.span("invert.step"):
+                out = render_current(z, pose, generator, center, bbox)
+                with trace.span("invert.loss"):
+                    loss = reconstruction_loss(config, lpips, out.rgb[..., :3], target,
+                                               target_features, aug_generator)
+                # Gradients of the optimized leaves only: the generator's
+                # parameters take none.
+                with trace.span("invert.backward"):
+                    for leaf, grad in zip(leaves, torch.autograd.grad(loss, leaves)):
+                        leaf.grad = grad
+                with trace.span("invert.optimizer"):
+                    if config.optimize_pose and not config.optimize_focal and pose.z0 is not None:
+                        pose.z0.grad = torch.zeros_like(pose.z0)
+                    opt.step()
+                    if config.optimize_pose:
+                        with torch.no_grad():
+                            for leaf, projected in zip(pose, _project(pose)):
+                                if leaf is not None:
+                                    leaf.copy_(projected)
+                    losses.append(loss.detach())
         final_pose = PoseParams(*(None if t is None else t.detach() for t in pose))
         return z.detach(), final_pose, torch.stack(losses)
 

@@ -37,6 +37,7 @@ from nerf_from_image_tpu_torch.ops import aabb, compositing, rays, sampling
 from nerf_from_image_tpu_torch.ops.triplane import pack_corners
 from nerf_from_image_tpu_torch.parallel import mesh
 from nerf_from_image_tpu_torch.pose.pose import invert_space
+from nerf_from_image_tpu_torch.utils import trace
 from nerf_from_image_tpu_torch.utils.device import check_on_device, resolve_device
 
 
@@ -135,13 +136,6 @@ def render_field(
     B, H, W, _ = ray_origins.shape
     S = config.depth_samples_per_ray
 
-    query_points, depth_values = sampling.compute_query_points_from_rays(
-        ray_origins, ray_directions, near, far, S, generator=generator
-    )
-    if force_no_cam_grad:
-        query_points = query_points.detach()
-        depth_values = depth_values.detach()
-        ray_directions = ray_directions.detach()
     requests = ("sigma", "rgb")
     if config.compute_normals:
         requests += ("normals",)
@@ -195,7 +189,15 @@ def render_field(
             for k, v in out.items()
         }
 
-    coarse = query(query_points)
+    with trace.span("render.coarse"):
+        query_points, depth_values = sampling.compute_query_points_from_rays(
+            ray_origins, ray_directions, near, far, S, generator=generator
+        )
+        if force_no_cam_grad:
+            query_points = query_points.detach()
+            depth_values = depth_values.detach()
+            ray_directions = ray_directions.detach()
+        coarse = query(query_points)
     sigma = coarse["sigma"]
     channels = _channels(coarse)
 
@@ -226,37 +228,43 @@ def render_field(
         return z_samples, query(fine_points)
 
     if config.fine_sampling and config.merge_mode == "pairwise":
-        z_samples, fine = fine_pass(sort_fine=True)
-        out = compositing.composite_dual(
-            sigma, depth_values, channels,
-            fine["sigma"], z_samples, _channels(fine),
-            ray_directions, white_background=config.white_background,
-        )
+        with trace.span("render.fine"):
+            z_samples, fine = fine_pass(sort_fine=True)
+        with trace.span("render.composite"):
+            out = compositing.composite_dual(
+                sigma, depth_values, channels,
+                fine["sigma"], z_samples, _channels(fine),
+                ray_directions, white_background=config.white_background,
+            )
         return out, {"depth_values": depth_values}
 
     if config.fine_sampling:
         if config.merge_mode != "sort":
             raise ValueError(f"unknown merge_mode {config.merge_mode!r}")
-        z_samples, fine = fine_pass(sort_fine=False)
-        # Depth-sorted merge of coarse + fine (stable: ties keep coarse first).
-        all_depths = torch.cat((depth_values, z_samples), dim=-1)
-        order = torch.argsort(all_depths, dim=-1, stable=True)
-        depth_values = torch.take_along_dim(all_depths, order, dim=-1)
-        sigma = torch.take_along_dim(
-            torch.cat((sigma, fine["sigma"]), dim=-1), order, dim=-1
-        )
-        fine_channels = _channels(fine)
-        channels = {
-            k: torch.take_along_dim(torch.cat((v, fine_channels[k]), dim=-2),
-                                    order[..., None], dim=-2)
-            for k, v in channels.items()
-        }
+        with trace.span("render.fine"):
+            z_samples, fine = fine_pass(sort_fine=False)
 
-    out = compositing.render_volume_density(
-        sigma, channels["rgb"], ray_directions, depth_values,
-        channels.get("normals"), channels.get("semantics"),
-        white_background=config.white_background,
-    )
+    with trace.span("render.composite"):
+        if config.fine_sampling:
+            # Depth-sorted merge of coarse + fine (stable: ties keep coarse first).
+            all_depths = torch.cat((depth_values, z_samples), dim=-1)
+            order = torch.argsort(all_depths, dim=-1, stable=True)
+            depth_values = torch.take_along_dim(all_depths, order, dim=-1)
+            sigma = torch.take_along_dim(
+                torch.cat((sigma, fine["sigma"]), dim=-1), order, dim=-1
+            )
+            fine_channels = _channels(fine)
+            channels = {
+                k: torch.take_along_dim(torch.cat((v, fine_channels[k]), dim=-2),
+                                        order[..., None], dim=-2)
+                for k, v in channels.items()
+            }
+
+        out = compositing.render_volume_density(
+            sigma, channels["rgb"], ray_directions, depth_values,
+            channels.get("normals"), channels.get("semantics"),
+            white_background=config.white_background,
+        )
     return out, {"depth_values": depth_values}
 
 
@@ -317,42 +325,44 @@ def render(
     check_on_device(dev, tform_cam2world=tform_cam2world,
                     focal_length=focal_length, latent=latent, center=center,
                     bbox=bbox, label=label, image=image)
-    ray_origins, ray_directions, near, far = prepare_rays(
-        config, tform_cam2world, focal_length, center, bbox, height, width
-    )
+    with trace.span("render.synthesis"):
+        ray_origins, ray_directions, near, far = prepare_rays(
+            config, tform_cam2world, focal_length, center, bbox, height, width
+        )
 
-    if latent.dim() == 3:
-        ws = latent
-        if latent.shape[1] == 1:
-            ws = latent.expand(latent.shape[0], model.num_ws, latent.shape[2])
-    else:
-        ws = model.mapping(latent, label, image)
+        if latent.dim() == 3:
+            ws = latent
+            if latent.shape[1] == 1:
+                ws = latent.expand(latent.shape[0], model.num_ws, latent.shape[2])
+        else:
+            ws = model.mapping(latent, label, image)
 
-    planes = model.synthesize(ws, noise_mode, generator)
-    if config.plane_splat:
-        # The splat op casts and corner-packs the raw planes itself, so its
-        # backward returns unpacked plane gradients directly.
-        field_planes = planes
-    else:
-        field_planes = planes
-        if config.plane_dtype is not None:
-            field_planes = field_planes.to(getattr(torch, config.plane_dtype))
-        field_planes = pack_corners(field_planes)
+        planes = model.synthesize(ws, noise_mode, generator)
+        if config.plane_splat:
+            # The splat op casts and corner-packs the raw planes itself, so its
+            # backward returns unpacked plane gradients directly.
+            field_planes = planes
+        else:
+            field_planes = planes
+            if config.plane_dtype is not None:
+                field_planes = field_planes.to(getattr(torch, config.plane_dtype))
+            field_planes = pack_corners(field_planes)
 
-    attention_values = model.texture(ws) if model.attention_values > 0 else None
+        attention_values = model.texture(ws) if model.attention_values > 0 else None
 
-    viewdir_embedding = None
-    if config.use_viewdir:
-        # force_no_cam_grad detaches the view directions too (the
-        # reference detaches ray_directions before building them).
-        B, H, W, _ = ray_directions.shape
-        dirs = ray_directions.detach() if force_no_cam_grad else ray_directions
-        viewdir_embedding = model.viewdir_embedding(dirs.reshape(B, H * W, 1, 3))[:, :, 0, :]
+        viewdir_embedding = None
+        if config.use_viewdir:
+            # force_no_cam_grad detaches the view directions too (the
+            # reference detaches ray_directions before building them).
+            B, H, W, _ = ray_directions.shape
+            dirs = ray_directions.detach() if force_no_cam_grad else ray_directions
+            viewdir_embedding = model.viewdir_embedding(dirs.reshape(B, H * W, 1, 3))[:, :, 0, :]
 
-    field_fn = make_field_fn(
-        model, field_planes, attention_values, splat=config.plane_splat,
-        table_dtype=config.plane_dtype,
-    )
+        field_fn = make_field_fn(
+            model, field_planes, attention_values, splat=config.plane_splat,
+            table_dtype=config.plane_dtype,
+        )
+
     with mesh.sharded_draws(1) if config.shard_rays else contextlib.nullcontext():
         out, aux = render_field(
             config, field_fn, ray_origins, ray_directions, near, far,

@@ -51,6 +51,7 @@ from nerf_from_image_tpu_torch.engine.inversion import (
 )
 from nerf_from_image_tpu_torch.parallel import mesh
 from nerf_from_image_tpu_torch.pose.pnp import estimate_poses_batch
+from nerf_from_image_tpu_torch.utils import trace
 from nerf_from_image_tpu_torch.utils.device import (
     check_on_device,
     resolve_device,
@@ -89,9 +90,11 @@ def first_guess(
     bs = target_img.shape[0]
     w = z_avg
     if encoder is not None:
-        coords, mask, w_pred = encoder(target_img[..., :3])
+        with trace.span("first_guess.encoder"):
+            coords, mask, w_pred = encoder(target_img[..., :3])
         if coords is not None:
-            pose, est_focal, _ = estimate_poses_batch(coords, mask, focal_guesses)
+            with trace.span("first_guess.pnp"):
+                pose, est_focal, _ = estimate_poses_batch(coords, mask, focal_guesses)
             if est_focal is not None:
                 focal = est_focal
         if w_pred is not None:

@@ -35,6 +35,7 @@ from nerf_from_image_tpu_torch.ops.triplane import (
     plane_coords,
     sample_packed_with_rows,
 )
+from nerf_from_image_tpu_torch.utils import trace
 
 
 # The JAX package's RenderConfig.splat_block: an image tile of 16 x 16 rays
@@ -153,6 +154,7 @@ def splat_corners(coords3: torch.Tensor, g: torch.Tensor, H: int, W: int):
     return torch.cat(idx), torch.cat(rows)
 
 
+@trace.spanned("splat.backward")
 def splat3_backward(
     coords3: torch.Tensor,
     g: torch.Tensor,

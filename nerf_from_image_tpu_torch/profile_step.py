@@ -15,8 +15,11 @@ pose-conditioned discriminator at 128^2, B=8 synthetic images and
 cameras, path length, splat backward in chunks of 131072, f32 planes;
 iterations 2 and 3 of a run).
 Warms up once, then traces two steps with torch.profiler and prints the
-device time by kernel, the device-busy share of the wall time, and one
-JSON line with the totals.
+device time by kernel, the device-busy share of the wall time (busy: the
+union of the device's activities), the host time of each of the port's
+ranges (utils/trace.py) with the device-idle time of the gaps that began
+while the host was in it (innermost range), and one JSON line with the
+totals.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
 from nerf_from_image_tpu_torch.kernels import splat
 from nerf_from_image_tpu_torch.models.generator import Generator
 from nerf_from_image_tpu_torch.models.lpips import LPIPS
+from nerf_from_image_tpu_torch.utils import trace
 from nerf_from_image_tpu_torch.utils.device import resolve_device, set_strict_f32
 
 BATCH, RES, SAMPLES = 4, 128, 64
@@ -189,6 +193,50 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _union_us(intervals) -> float:
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def timeline(events, window: str):
+    """From a profiler session's events: the microseconds of the host range
+    named `window`, the device-busy microseconds inside it (the union of
+    the device's activities, the ranges' device copies left out), and for
+    each other
+    range of the port (name without its prefix) [host us, idle us of the
+    device gaps that began while it was the innermost range the host was
+    in]; gaps in no range come under 'outside ranges'."""
+    lo = hi = None
+    device, ranges = [], []
+    for e in events:
+        start, end = e.time_range.start, e.time_range.end
+        on_device = str(e.device_type).endswith("CUDA")
+        if e.name.startswith(trace.PREFIX):
+            if on_device:
+                continue
+            if e.name == trace.PREFIX + window:
+                lo, hi = start, end
+            else:
+                ranges.append((start, end, e.name[len(trace.PREFIX):]))
+        elif on_device:
+            device.append((start, end))
+    busy = [(max(a, lo), min(b, hi)) for a, b in device if min(b, hi) > max(a, lo)]
+    table = {name: [_union_us([(a, b) for a, b, n in ranges if n == name]), 0.0]
+             for name in sorted({n for _, _, n in ranges})}
+    t = lo
+    for a, b in sorted(busy) + [(hi, hi)]:
+        if a > t:
+            inside = [(end - start, n) for start, end, n in ranges if start <= t < end]
+            key = min(inside)[1] if inside else "outside ranges"
+            table.setdefault(key, [0.0, 0.0])[1] += a - t
+        t = max(t, b)
+    return hi - lo, _union_us(busy), table
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--plane_dtype", default=None, choices=(None, "bfloat16"))
@@ -227,22 +275,24 @@ def main(argv=None) -> None:
     steps = 2
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        with trace.span("profile_step"):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages() if _device_us(e) > 0]
     events.sort(key=_device_us, reverse=True)
     # Device rows (kernels, memsets) only: operator rows repeat the time
-    # of the kernels they launch.
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
-    busy_us = sum(_device_us(e) for e in kernels)
+    # of the kernels they launch, and a range's device row is no work.
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")
+               and not e.key.startswith(trace.PREFIX)]
+    window_us, busy_us, ranges = timeline(prof.events(), "profile_step")
     label = {"render": "render", "gan": "gan (one G step + one D step, B=8)"}.get(
         args.step, f"inversion loss={args.loss}")
     print(f"{label} plane_dtype={args.plane_dtype or 'float32'}: wall {wall_us / steps / 1e3:.1f} "
           f"ms/step, device busy {busy_us / steps / 1e3:.1f} ms/step "
-          f"({100 * busy_us / wall_us:.1f}% of wall)")
+          f"({100 * busy_us / window_us:.1f}% of wall)")
     for e in kernels[: args.top]:
         print(f"{_device_us(e) / steps / 1e3:9.3f} ms/step  x{e.count // steps:<5d} "
               f"{e.key[:110]}")
@@ -250,6 +300,9 @@ def main(argv=None) -> None:
     print("operators (self device time):")
     for e in ops:
         print(f"{_device_us(e) / steps / 1e3:9.3f} ms/step  x{e.count // steps:<5d} {e.key}")
+    print("ranges (host ms/step, device idle ms/step of the gaps that began in it):")
+    for name, (host_us, idle_us) in sorted(ranges.items(), key=lambda kv: -kv[1][1]):
+        print(f"{host_us / steps / 1e3:9.3f} {idle_us / steps / 1e3:9.3f}  {name}")
     print(json.dumps({
         "step": args.step,
         "loss": args.loss if args.step == "inversion" else None,
@@ -257,7 +310,8 @@ def main(argv=None) -> None:
         "plane_dtype": args.plane_dtype or "float32",
         "wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,
-        "device_idle_share": 1.0 - busy_us / wall_us,
+        "device_idle_share": 1.0 - busy_us / window_us,
+        "idle_ms_per_step_by_range": {k: v[1] / steps / 1e3 for k, v in ranges.items()},
         "device": torch.cuda.get_device_name(0),
     }))
 
