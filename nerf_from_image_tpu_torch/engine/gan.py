@@ -270,7 +270,10 @@ def clamp_sdf_params(model, use_sdf: bool) -> None:
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    """x as a 0-dim f32 tensor, filled on the device: torch.tensor(x,
+    device=...) would copy it from pageable host memory and wait for the
+    device. The same f32 value (x rounded to nearest)."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def _disc_input(out, config: GANTrainConfig) -> torch.Tensor:

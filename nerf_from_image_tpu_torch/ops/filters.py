@@ -14,14 +14,21 @@ import torch
 import torch.nn.functional as F
 
 from nerf_from_image_tpu_torch.ops import conv as conv_ops
+from nerf_from_image_tpu_torch.utils.device import constant
 
 
 def bilinear_filter(dtype=torch.float32, device=None) -> torch.Tensor:
-    """The normalized separable [1, 3, 3, 1] resampling filter [4, 4]."""
-    h = np.array([1.0, 3.0, 3.0, 1.0])
-    h = h[:, None] * h[None, :]
-    h /= h.sum()
-    return torch.as_tensor(h, dtype=dtype, device=device)
+    """The normalized separable [1, 3, 3, 1] resampling filter [4, 4],
+    made once per (dtype, device) and shared: callers must not modify it
+    in place (`filter2d`'s gain and `upsample2d`'s 4x make new tensors)."""
+
+    def make():
+        h = np.array([1.0, 3.0, 3.0, 1.0])
+        h = h[:, None] * h[None, :]
+        h /= h.sum()
+        return torch.as_tensor(h, dtype=dtype, device=device)
+
+    return constant(("bilinear_filter", dtype, device), make)
 
 
 def depthwise_conv2d(x, kernel2d, stride=1, padding=0, transpose=False):

@@ -11,18 +11,28 @@ clip is written as minimum(maximum(.)) rather than torch.clamp: at an
 exact boundary hit clamp's backward passes 1.0, while jnp.clip (and
 torch.maximum/minimum) split the tie and pass 0.5. The near plane puts
 every ray's first sample exactly on the box face, so such ties are common.
+The bounds are 0-dim tensors made once per (device, dtype, value): one
+made from a Python number on each call would wait for the device.
 """
 
 from __future__ import annotations
 
 import torch
 
+from nerf_from_image_tpu_torch.utils.device import constant
+
+
+def bound(value: float, like: torch.Tensor) -> torch.Tensor:
+    """`value` as a shared 0-dim tensor of like's device and dtype."""
+    value = float(value)
+    # By the value's bits: 0.0 and -0.0 are equal as dict keys.
+    return constant(("clip", like.device, like.dtype, value.hex()),
+                    lambda: torch.full((), value, dtype=like.dtype, device=like.device))
+
 
 def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """jnp.clip with its gradient convention (0.5 at an exact tie)."""
-    return torch.minimum(
-        torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi)
-    )
+    return torch.minimum(torch.maximum(x, bound(lo, x)), bound(hi, x))
 
 
 def pixel_coords(coords2: torch.Tensor, H: int, W: int):

@@ -1,7 +1,7 @@
 """Where the time of one full-width step goes on the card.
 
     python -m nerf_from_image_tpu_torch.profile_step [--plane_dtype bfloat16]
-        [--step render|inversion|gan] [--loss mse|vgg]
+        [--step render|inversion|gan] [--loss mse|vgg] [--count_syncs]
 
 'render' is the bench step (Generator(512, 1.4, attention_values=10),
 B=4, 128^2 rays, 64 coarse + 64 fine samples, pairwise merge, splat
@@ -19,15 +19,22 @@ device time by kernel, the device-busy share of the wall time (busy: the
 union of the device's activities), the host time of each of the port's
 ranges (utils/trace.py) with the device-idle time of the gaps that began
 while the host was in it (innermost range), and one JSON line with the
-totals.
+totals. With --count_syncs it runs one warm step under
+torch.cuda.set_sync_debug_mode("warn") instead, and prints the
+synchronizing calls (each waits until the device's queue has drained) by
+call site and their total.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
+import os
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -45,6 +52,9 @@ from nerf_from_image_tpu_torch.utils import trace
 from nerf_from_image_tpu_torch.utils.device import resolve_device, set_strict_f32
 
 BATCH, RES, SAMPLES = 4, 128, 64
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+# The warning of torch.cuda.set_sync_debug_mode("warn").
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 def bench_poses(batch: int, device) -> torch.Tensor:
@@ -186,6 +196,51 @@ def gan_case(dev, batch=GAN_BATCH, res=RES, model=None, disc=None, max_images=64
     return step
 
 
+def _where(path: str, lineno: int):
+    """('file:line', whether the file lies in the package); a path in the
+    package is given relative to it."""
+    path = os.path.abspath(path)
+    inside = path.startswith(PKG_DIR + os.sep)
+    return f"{os.path.relpath(path, PKG_DIR) if inside else path}:{lineno}", inside
+
+
+def _call_site(filename: str, lineno: int) -> str:
+    """Where a warning raised at filename:lineno was called from: that
+    location if it lies in the package, else the innermost frame of the
+    package on the stack followed by the location (torch's own Python
+    code, say), else the location alone."""
+    here, inside = _where(filename, lineno)
+    if inside:
+        return here
+    for frame in reversed(traceback.extract_stack()):
+        site, ours = _where(frame.filename, frame.lineno)
+        if ours and frame.name not in ("_call_site", "record"):
+            return f"{site} ({here})"
+    return here
+
+
+@contextlib.contextmanager
+def counted_syncs():
+    """Counts the synchronizing-call warnings raised inside the block by
+    call site (`_call_site`): yields a Counter that fills as they come.
+    Other warnings are shown as usual. The caller turns the warnings on
+    (torch.cuda.set_sync_debug_mode("warn")); calls on autograd's device
+    thread that no Python frame made come at the backward's call."""
+    sites = collections.Counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        show = warnings.showwarning
+
+        def record(message, category, filename, lineno, file=None, line=None):
+            if SYNC_WARNING in str(message):
+                sites[_call_site(filename, lineno)] += 1
+            else:
+                show(message, category, filename, lineno, file, line)
+
+        warnings.showwarning = record
+        yield sites
+
+
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -243,6 +298,9 @@ def main(argv=None) -> None:
     parser.add_argument("--step", default="render", choices=("render", "inversion", "gan"))
     parser.add_argument("--loss", default="mse", choices=("mse", "vgg"))
     parser.add_argument("--top", type=int, default=15)
+    parser.add_argument("--count_syncs", action="store_true",
+                        help="count one warm step's synchronizing calls by call site "
+                             "instead of profiling")
 
     args = parser.parse_args(argv)
 
@@ -272,6 +330,24 @@ def main(argv=None) -> None:
 
     step()
     torch.cuda.synchronize()
+    label = {"render": "render", "gan": "gan (one G step + one D step, B=8)"}.get(
+        args.step, f"inversion loss={args.loss}")
+    if args.count_syncs:
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with counted_syncs() as sites:
+                step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print(f"{label}: synchronizing calls in one warm step, by call site:")
+        for site, n in sites.most_common():
+            print(f"{n:6d}  {site}")
+        print(json.dumps({"step": args.step,
+                          "loss": args.loss if args.step == "inversion" else None,
+                          "sync_calls": sum(sites.values()), "by_site": dict(sites),
+                          "device": torch.cuda.get_device_name(0)}))
+        return
     steps = 2
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -288,8 +364,6 @@ def main(argv=None) -> None:
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")
                and not e.key.startswith(trace.PREFIX)]
     window_us, busy_us, ranges = timeline(prof.events(), "profile_step")
-    label = {"render": "render", "gan": "gan (one G step + one D step, B=8)"}.get(
-        args.step, f"inversion loss={args.loss}")
     print(f"{label} plane_dtype={args.plane_dtype or 'float32'}: wall {wall_us / steps / 1e3:.1f} "
           f"ms/step, device busy {busy_us / steps / 1e3:.1f} ms/step "
           f"({100 * busy_us / window_us:.1f}% of wall)")

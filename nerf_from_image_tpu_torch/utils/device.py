@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Hashable, Optional
 
 import numpy as np
 import torch
@@ -38,6 +38,27 @@ def to_device(x, device, dtype=torch.float32) -> Optional[torch.Tensor]:
     if x is None:
         return None
     return torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
+
+
+# Constants of the hot path, by key (see `constant`).
+_CONSTANTS: dict = {}
+
+
+def constant(key: Hashable, make: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """The tensor `make()` returns, made on the first call with `key` and
+    shared by every later one: callers must not modify it in place.
+
+    A tensor made from a Python number or a numpy array on each call is a
+    copy from pageable host memory, which waits until the device's queue
+    has drained. The key names everything the tensor depends on (device,
+    dtype, values). It is made outside inference mode, so that autograd
+    may save it for a backward.
+    """
+    t = _CONSTANTS.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _CONSTANTS.setdefault(key, make())
+    return t
 
 
 def set_strict_f32() -> None:
