@@ -14,6 +14,10 @@ the update count is below lr_drop_at, then lr / 10; the count is taken
 before its increment), as engine/gan.py's Optimizer evaluates optax's
 chain: torch.optim.Adam with a scheduler would move the rate at another
 count.
+
+Ranges (utils/trace.py): distill.targets (z, the mapping and the target
+render), distill.encoder (the encoder's forward and the losses),
+distill.optimizer (Adam); the backward is param_grads' gan.backward.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from nerf_from_image_tpu_torch.engine.gan import Optimizer, param_grads
 from nerf_from_image_tpu_torch.engine.inversion import _abs
 from nerf_from_image_tpu_torch.engine.render import RenderConfig, render
 from nerf_from_image_tpu_torch.parallel import mesh
+from nerf_from_image_tpu_torch.utils import trace
 from nerf_from_image_tpu_torch.utils.device import check_on_device, resolve_device
 
 
@@ -107,13 +112,18 @@ def coord_train_step(
     """
     dev = resolve_device(device)
     check_on_device(dev, pose=batch["pose"], z=z)
-    if z is None:
-        z = mesh.draw(torch.randn, (batch["pose"].shape[0], config.latent_dim),
-                      generator=generator, device=dev)
-    image, mask, coords, w = render_targets(render_config, generator_ema, batch, z,
-                                            generator, dev)
-    pred_coords, pred_mask, pred_w = encoder(image, deterministic=False, generator=generator)
-    loss, losses = coord_losses(pred_coords, pred_mask, pred_w, coords, mask, w)
-    opt.step(param_grads(loss, opt.params))
+    with trace.span("distill.targets"):
+        if z is None:
+            z = mesh.draw(torch.randn, (batch["pose"].shape[0], config.latent_dim),
+                          generator=generator, device=dev)
+        image, mask, coords, w = render_targets(render_config, generator_ema, batch, z,
+                                                generator, dev)
+    with trace.span("distill.encoder"):
+        pred_coords, pred_mask, pred_w = encoder(image, deterministic=False,
+                                                 generator=generator)
+        loss, losses = coord_losses(pred_coords, pred_mask, pred_w, coords, mask, w)
+    grads = param_grads(loss, opt.params)
+    with trace.span("distill.optimizer"):
+        opt.step(grads)
     losses["loss"] = loss
     return mesh.mean_metrics({k: v.detach() for k, v in losses.items()})

@@ -1,7 +1,7 @@
 """Where the time of one full-width step goes on the card.
 
     python -m nerf_from_image_tpu_torch.profile_step [--plane_dtype bfloat16]
-        [--step render|inversion|gan] [--loss mse|vgg] [--count_syncs]
+        [--step render|inversion|gan|distill] [--loss mse|vgg] [--count_syncs]
 
 'render' is the bench step (Generator(512, 1.4, attention_values=10),
 B=4, 128^2 rays, 64 coarse + 64 fine samples, pairwise merge, splat
@@ -13,7 +13,12 @@ chip_smoke.py runs). 'gan' is one G step and one D step of the
 train-synthetic cell (engine/gan.py: the bench generator and the
 pose-conditioned discriminator at 128^2, B=8 synthetic images and
 cameras, path length, splat backward in chunks of 131072, f32 planes;
-iterations 2 and 3 of a run).
+iterations 2 and 3 of a run). 'distill' is one step of the bootstrap
+encoder's distillation as train_encoder runs it by default
+(engine/coord_regressor.py: the frozen bench generator's no-grad render
+with coordinates at 128^2, 64 + 64 samples in chunks of 131072, MiT-B5
+with drop path, Adam), B=32 cameras at distance 3; each call takes the
+next step's draws.
 Warms up once, then traces two steps with torch.profiler and prints the
 device time by kernel, the device-busy share of the wall time (busy: the
 union of the device's activities), the host time of each of the port's
@@ -196,6 +201,37 @@ def gan_case(dev, batch=GAN_BATCH, res=RES, model=None, disc=None, max_images=64
     return step
 
 
+DISTILL_BATCH = 32
+
+
+def distill_case(dev):
+    """One distillation step at the full widths, as train_encoder runs it:
+    returns step() -> the step's losses. Each call takes the next step,
+    with its own draws."""
+    from nerf_from_image_tpu_torch.engine import coord_regressor as cr
+    from nerf_from_image_tpu_torch.models.encoder import BootstrapEncoder
+
+    model = Generator(latent_dim=512, scene_range=1.4, attention_values=10, use_sdf=True,
+                      device=dev, generator=torch.Generator().manual_seed(0))
+    model.requires_grad_(False)
+    encoder = BootstrapEncoder(latent_dim=model.w_dim, device=dev,
+                               generator=torch.Generator().manual_seed(1))
+    config = cr.CoordRegressorConfig()
+    cfg = RenderConfig(resolution=RES, depth_samples_per_ray=SAMPLES, scene_range=1.4)
+    opt = cr.make_optimizer(config, encoder)
+    batch = {"pose": bench_poses(DISTILL_BATCH, dev),
+             "focal": torch.full((DISTILL_BATCH,), 1.2, device=dev)}
+    count = [0]
+
+    def step():
+        count[0] += 1
+        return cr.coord_train_step(config, cfg, model, encoder, opt, batch,
+                                   torch.Generator(device=dev).manual_seed(count[0]),
+                                   device=dev)
+
+    return step
+
+
 def _where(path: str, lineno: int):
     """('file:line', whether the file lies in the package); a path in the
     package is given relative to it."""
@@ -295,7 +331,8 @@ def timeline(events, window: str):
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--plane_dtype", default=None, choices=(None, "bfloat16"))
-    parser.add_argument("--step", default="render", choices=("render", "inversion", "gan"))
+    parser.add_argument("--step", default="render",
+                        choices=("render", "inversion", "gan", "distill"))
     parser.add_argument("--loss", default="mse", choices=("mse", "vgg"))
     parser.add_argument("--top", type=int, default=15)
     parser.add_argument("--count_syncs", action="store_true",
@@ -307,10 +344,10 @@ def main(argv=None) -> None:
     dev = resolve_device("cuda")
     set_strict_f32()
 
-    if args.step == "gan":
+    if args.step in ("gan", "distill"):
         if args.plane_dtype is not None:
-            parser.error("--step gan runs the cell's f32 planes")
-        step = gan_case(dev)
+            parser.error(f"--step {args.step} runs f32 planes")
+        step = gan_case(dev) if args.step == "gan" else distill_case(dev)
     else:
         model = Generator(latent_dim=512, scene_range=1.4, attention_values=10,
                           use_sdf=True, device=dev,
@@ -330,7 +367,8 @@ def main(argv=None) -> None:
 
     step()
     torch.cuda.synchronize()
-    label = {"render": "render", "gan": "gan (one G step + one D step, B=8)"}.get(
+    label = {"render": "render", "gan": "gan (one G step + one D step, B=8)",
+             "distill": f"distill (one encoder distillation step, B={DISTILL_BATCH})"}.get(
         args.step, f"inversion loss={args.loss}")
     if args.count_syncs:
         torch.cuda.set_sync_debug_mode("warn")
@@ -380,7 +418,7 @@ def main(argv=None) -> None:
     print(json.dumps({
         "step": args.step,
         "loss": args.loss if args.step == "inversion" else None,
-        "batch": GAN_BATCH if args.step == "gan" else BATCH,
+        "batch": {"gan": GAN_BATCH, "distill": DISTILL_BATCH}.get(args.step, BATCH),
         "plane_dtype": args.plane_dtype or "float32",
         "wall_ms_per_step": wall_us / steps / 1e3,
         "device_busy_ms_per_step": busy_us / steps / 1e3,

@@ -19,7 +19,8 @@ The ranges: render.{synthesis,coarse,fine,composite} (engine/render.py),
 gan.{g_step,d_step,augment,disc,regularizers,backward,optimizer}
 (engine/gan.py), invert.{target_features,step,loss,backward,optimizer}
 (engine/inversion.py), first_guess.{encoder,pnp} (invert.py),
-eval.metrics (engine/evaluate.py) and splat.backward (kernels/splat.py).
+eval.metrics (engine/evaluate.py), distill.{targets,encoder,optimizer}
+(engine/coord_regressor.py) and splat.backward (kernels/splat.py).
 """
 
 from __future__ import annotations
